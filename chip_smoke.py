@@ -4,20 +4,36 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build the flash-attention CUDA kernel from the checkout's sources;
-  2. kernel vs its plain PyTorch version on the card: every mask mode and
-     GQA at small shapes, then the two main-path shapes (ViT full attention
-     S=6912 D=80 with the real 68x92 window-plan mask; trunk prefill
-     H=16/Hkv=2 D=128 causal S=1700 kv_len<S), f32 with TF32 off
+  1. build both CUDA kernels from the checkout's sources, one nvcc each,
+     started together;
+  2. flash attention vs its plain PyTorch version on the card: every mask
+     mode and GQA at small shapes, then the two main-path shapes (ViT full
+     attention S=6912 D=80 with the real 68x92 window-plan mask; trunk
+     prefill H=16/Hkv=2 D=128 causal S=1700 kv_len<S), f32 with TF32 off
      (max abs err <= 1e-4) and bf16 against the plain version in f32 on the
-     same bf16 inputs (<= 2e-2), with both times at the main-path shapes;
-  3. FO1Config.tiny() (untied head) f32 with shared weights: greedy
+     same bf16 inputs (<= 2e-2); kernel, plain and
+     scaled_dot_product_attention times at the main-path shapes;
+  3. multi-scale deformable attention vs its plain version the same way:
+     D in {8, 32} at small non-square levels with out-of-range locations,
+     then the UPN encoder (Lq = S = 85,932) and decoder (Lq = 900) shapes
+     of the demo image, with kernel and plain times beside the bound;
+  4. FO1Config.tiny() (untied head) f32 with shared weights: greedy
      tokens on the card (kernel) equal those on the CPU (plain version);
-  4. FO1Config() (Qwen2.5-VL-3B FO1) bf16 with random weights: three
-     grounding requests with the 7 demo boxes on a seeded synthetic
-     1288x966 image, flash launches counted over those requests, then the
-     first request's prefill logits and region tokens compared between the
-     kernel path and the plain path.
+  5. tiny UPN f32 with shared weights: the card (kernel) and the CPU (plain
+     version) select the same top-k anchors, boxes and logits to 1e-4;
+  6. FO1Config() (Qwen2.5-VL-3B FO1) bf16 with random weights: three
+     grounding requests with the 7 demo boxes on seeded synthetic 1288x966
+     images, flash launches counted over them, then the first request's
+     prefill logits and region tokens compared between the kernel path and
+     the plain path;
+  7. UPN at the released geometry (Swin-L + UPNConfig()) bf16 with random
+     weights: three proposal requests on seeded synthetic 1288x966 images,
+     stage times and MSDA launches per request, then one request's encoder
+     output compared between the kernel path and the plain path, and the
+     kernel timed on that request's own encoder and decoder inputs;
+  8. UPN -> FO1: the first 100 proposals after filter(min_score=0,
+     nms=0.8) go into one 3B grounding request (the phase-6 model); both
+     kernels' launches counted over this path.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -35,7 +51,7 @@ import torch
 F32_TOL = 1e-4
 BF16_TOL = 2e-2
 # kernel path vs plain path at full width in bf16, relative to the largest
-# reference magnitude: 36 trunk layers of bf16 rounding in different places
+# reference magnitude: many layers of bf16 rounding in different places
 PATH_REL_TOL = 5e-2
 DEMO_BOXES = [
     [161.0, 11.0, 292.0, 127.0], [268.0, 61.0, 428.0, 226.0],
@@ -43,6 +59,11 @@ DEMO_BOXES = [
     [326.0, 202.0, 478.0, 357.0], [136.0, 106.0, 269.0, 233.0],
     [25.0, 206.0, 200.0, 383.0],
 ]
+# published H100 SXM peaks (dense): device memory rate, bf16 tensor-core
+# rate, float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def _card():
@@ -79,7 +100,35 @@ def _timeit(fn, n=5):
     return e0.elapsed_time(e1) / n
 
 
-def phase_kernel(sm, fa, build_vit_plan, vit_cfg):
+def _bound(nbytes, flops, peak_flops):
+    """Least time the card could take: (ms, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _synthetic_image(seed):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    return Image.fromarray(rng.integers(0, 256, (966, 1288, 3), np.uint8))
+
+
+def _messages(seed, template, boxes=DEMO_BOXES, image=None):
+    return [{
+        "role": "user",
+        "content": [{"type": "image_url",
+                     "image_url": {"url": image or _synthetic_image(seed)}},
+                    {"type": "text", "text": template.format("orange")}],
+        "bbox_list": boxes,
+    }]
+
+
+# ------------------------------------------------------------ flash kernel
+
+def phase_flash(sm, fa, build_vit_plan, vit_cfg):
+    import torch.nn.functional as F
+
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def inputs(b, h, hkv, sq, sk, d, dtype):
@@ -96,7 +145,7 @@ def phase_kernel(sm, fa, build_vit_plan, vit_cfg):
         err = (out.float() - ref).abs().max().item()
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         sm.check(bool(torch.isfinite(out).all()) and err <= tol,
-                 f"kernel {name} {str(dtype)[6:]} shape={shape} "
+                 f"flash {name} {str(dtype)[6:]} shape={shape} "
                  f"max_abs_err={err:.3e} (tol {tol:g})")
         return err
 
@@ -125,59 +174,204 @@ def phase_kernel(sm, fa, build_vit_plan, vit_cfg):
     for name, shape, kw in main:
         for dtype in (torch.float32, torch.bfloat16):
             errs.append(compare(name, shape, kw, dtype))
+        b, h, hkv, sq, sk, d = shape
         q, k, v = inputs(*shape, torch.bfloat16)
+        # the same function as one PyTorch call (a yardstick only)
+        kpos = torch.arange(sk, device="cuda")
+        allowed = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
+        if kw.get("causal"):
+            qpos = torch.arange(sq, device="cuda")
+            allowed &= kpos[None, :] <= qpos[:, None] + (sk - sq)
+        if "kv_len" in kw:
+            allowed &= (kpos < kw["kv_len"])[None, :]
+        if "kv_valid" in kw:
+            allowed &= kw["kv_valid"][None, :]
         plain_ms = _timeit(lambda: fa.flash_attention_reference(q, k, v, **kw))
         ms = _timeit(lambda: fa.flash_attention(q, k, v, **kw))
-        times[name] = (ms, plain_ms)
-        sm.log(f"time {name} bf16 shape={shape}: kernel {ms:.3f} ms, "
-               f"plain {plain_ms:.3f} ms (CUDA events, mean of 5)")
+        lib_ms = _timeit(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=allowed, enable_gqa=hkv != h))
+        # the work this mask needs: rows of pad queries (kv_valid) are
+        # unspecified, so only valid query rows count
+        rows = allowed & kw["kv_valid"][:, None] if "kv_valid" in kw \
+            else allowed
+        pairs = int(rows.sum().item())
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = _bound(nbytes, 4 * b * h * d * pairs,
+                                    BF16_FLOPS)
+        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by}
+        sm.log(f"time flash {name} bf16 shape={shape}: kernel {ms:.3f} ms, "
+               f"plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+               f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+               f"({4 * b * h * d * pairs / 1e9:.1f} GFLOP, "
+               f"{nbytes / 1e6:.1f} MB; CUDA events, mean of 5)")
     return max(errs), times
 
 
-def _messages(seed, template):
-    rng = np.random.default_rng(seed)
-    from PIL import Image
+# ------------------------------------------------------------- MSDA kernel
 
-    img = Image.fromarray(rng.integers(0, 256, (966, 1288, 3), np.uint8))
-    return [{
-        "role": "user",
-        "content": [{"type": "image_url", "image_url": {"url": img}},
-                    {"type": "text", "text": template.format("orange")}],
-        "bbox_list": DEMO_BOXES,
-    }]
+def _upn_levels(h, w, levels=5):
+    """Level maps of a padded UPN input: strides 4..32, then stride-2
+    convolutions (kernel 3, padding 1)."""
+    out = [(h // 4 // 2**i, w // 4 // 2**i) for i in range(4)]
+    while len(out) < levels:
+        ph, pw = out[-1]
+        out.append(((ph - 1) // 2 + 1, (pw - 1) // 2 + 1))
+    return tuple(out)
 
 
-def phase_tiny(sm, FO1Model, host):
+def _msda_cost(value, shapes, loc):
+    """(bytes, flops) the function needs on these inputs: every input read
+    once, the output written once; ~10 FLOPs per channel for each sample
+    with at least one corner on its map (4 corner weights, 4 products,
+    the weighted sum)."""
+    b, s, m, d = value.shape
+    lq = loc.shape[1]
+    nbytes = (value.numel() * value.element_size() + loc.numel() * 4
+              + loc.numel() // 2 * 4 + b * lq * m * d * 4)
+    hw = torch.tensor(shapes, dtype=torch.float32, device=loc.device)
+    x = loc[..., 0] * hw[None, None, None, :, None, 1] - 0.5
+    y = loc[..., 1] * hw[None, None, None, :, None, 0] - 0.5
+    inside = ((x > -1) & (x < hw[:, 1, None]) & (y > -1)
+              & (y < hw[:, 0, None]))
+    return nbytes, 10 * d * int(inside.sum().item())
+
+
+def _msda_inputs(gen, shapes, b, lq, m, d, npts, dtype, lo, hi):
+    s = sum(h * w for h, w in shapes)
+    nl = len(shapes)
+    value = torch.randn(b, s, m, d, device="cuda", generator=gen).to(dtype)
+    loc = lo + (hi - lo) * torch.rand(b, lq, m, nl, npts, 2, device="cuda",
+                                      generator=gen)
+    aw = torch.softmax(torch.randn(b, lq, m, nl * npts, device="cuda",
+                                   generator=gen), -1)
+    return value, loc, aw.reshape(b, lq, m, nl, npts).contiguous()
+
+
+def _msda_compare(sm, msda, name, value, shapes, loc, aw):
+    out = msda.ms_deform_attn_core(value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_core_reference(value.float(), shapes, loc, aw)
+    err = (out - ref).abs().max().item()
+    tol = F32_TOL if value.dtype == torch.float32 else BF16_TOL
+    sm.check(bool(torch.isfinite(out).all()) and err <= tol,
+             f"msda {name} {str(value.dtype)[6:]} value={tuple(value.shape)}"
+             f" Lq={loc.shape[1]} max_abs_err={err:.3e} (tol {tol:g})")
+    return err
+
+
+def _msda_time(sm, msda, name, value, shapes, loc, aw):
+    ms = _timeit(lambda: msda.ms_deform_attn_core(value, shapes, loc, aw))
+    plain_ms = _timeit(lambda: msda.ms_deform_attn_core_reference(
+        value, shapes, loc, aw), n=3)
+    nbytes, flops = _msda_cost(value, shapes, loc)
+    bound_ms, bound_by = _bound(nbytes, flops, F32_FLOPS)
+    sm.log(f"time msda {name} {str(value.dtype)[6:]} Lq={loc.shape[1]}: "
+           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+           f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+           f"{flops / 1e9:.2f} GFLOP; CUDA events)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_msda(sm, msda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    small = ((6, 8), (3, 4), (2, 2))
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 32):
+            inp = _msda_inputs(gen, small, 2, 37, 2, d, 4, dtype, -0.3, 1.3)
+            _msda_compare(sm, msda, f"small D={d}", inp[0], small, *inp[1:])
+    shapes = _upn_levels(896, 1152)
+    s = sum(h * w for h, w in shapes)
+    errs = []
+    for name, lq in (("encoder", s), ("decoder", 900)):
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = _msda_inputs(gen, shapes, 1, lq, 8, 32, 4, dtype,
+                               -0.05, 1.05)
+            errs.append(_msda_compare(sm, msda, f"{name} synthetic",
+                                      inp[0], shapes, *inp[1:]))
+        _msda_time(sm, msda, f"{name} synthetic (uniform locations)",
+                   inp[0], shapes, *inp[1:])
+    return max(errs)
+
+
+# ----------------------------------------------------------------- tiny
+
+def phase_tiny_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template):
     # untied head: with random weights a tied head echoes the last prompt
     # token, and equal greedy tokens would prove nothing
-    tiny = host.FO1Config.tiny()
+    tiny = FO1Config.tiny()
     cfg = dataclasses.replace(tiny, text=dataclasses.replace(
         tiny.text, tie_word_embeddings=False))
-    tok = host.FallbackTokenizer()
+    tok = FallbackTokenizer()
     cpu = FO1Model.random_init(cfg, seed=0, device="cpu", tokenizer=tok)
     gpu = FO1Model(cfg, device="cuda", tokenizer=tok)
     gpu.load_state_dict(cpu.state_dict())
-    msgs = _messages(1, host.OD_template)
+    msgs = _messages(1, OD_template)
     r_cpu = cpu.generate(msgs, max_new_tokens=16, max_pixels=256 * 256)
     r_gpu = gpu.generate(msgs, max_new_tokens=16, max_pixels=256 * 256)
     logit_err = np.abs(r_cpu.prefill_logits - r_gpu.prefill_logits).max()
     sm.check(np.array_equal(r_cpu.token_ids, r_gpu.token_ids),
-             f"tiny f32 greedy tokens card == cpu: {r_gpu.token_ids.tolist()}"
-             f" vs {r_cpu.token_ids.tolist()}; prefill logits max_abs_err="
-             f"{logit_err:.3e}")
+             f"tiny FO1 f32 greedy tokens card == cpu: "
+             f"{r_gpu.token_ids.tolist()} vs {r_cpu.token_ids.tolist()}; "
+             f"prefill logits max_abs_err={logit_err:.3e}")
 
 
-def phase_full(sm, FO1Model, fa, host):
-    cfg = host.FO1Config()
+def phase_tiny_upn(sm, upn_mod, msda):
+    from vlm_fo1_tpu_torch.upn.model import UPNConfig
+    from vlm_fo1_tpu_torch.upn.swin import SwinConfig
+
+    swin = SwinConfig(embed_dim=16, depths=(1, 1, 2, 1),
+                      num_heads=(1, 2, 4, 8), window_size=4)
+    cfg = UPNConfig(d_model=32, n_heads=4, n_points=2, num_encoder_layers=2,
+                    num_decoder_layers=2, d_ffn=64, num_queries=20,
+                    gn_groups=8, pos_feats=16)
+    cpu = upn_mod.UPNWrapper.random_init(cfg, swin, seed=1, device="cpu")
+    # sampling offsets that follow the queries, so the kernel's sampling
+    # pattern depends on the data
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for mod in cpu.model.modules():
+            if isinstance(mod, msda.MSDeformAttn):
+                w = mod.sampling_offsets.weight
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.05)
+    gpu = upn_mod.UPNWrapper.random_init(cfg, swin, device="cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    padded, hw, _ = cpu.prepare(_synthetic_image(3).resize((320, 256)))
+    outs = {}
+    for name, w in (("cpu", cpu), ("card", gpu)):
+        x, valid = w.model_input(padded[None], np.array([hw], np.int32))
+        before = msda.ms_deform_attn_core.launches
+        out = w.model(x, valid)
+        outs[name] = {k: v.cpu() for k, v in out.items()}
+        outs[name]["launches"] = msda.ms_deform_attn_core.launches - before
+    c, g = outs["cpu"], outs["card"]
+    box_err = (c["pred_boxes"] - g["pred_boxes"]).abs().max().item()
+    logit_err = (c["pred_logits"] - g["pred_logits"]).abs().max().item()
+    sm.check(torch.equal(c["topk_idx"], g["topk_idx"])
+             and box_err <= F32_TOL and logit_err <= F32_TOL
+             and g["launches"] == 4 and c["launches"] == 0,
+             f"tiny UPN f32 card == cpu: top-k equal "
+             f"{torch.equal(c['topk_idx'], g['topk_idx'])}, boxes "
+             f"max_abs_err={box_err:.3e}, logits max_abs_err="
+             f"{logit_err:.3e} (tol {F32_TOL:g}), msda launches card "
+             f"{g['launches']} cpu {c['launches']}")
+
+
+# ----------------------------------------------------------- full width
+
+def phase_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, fa,
+              extract):
+    cfg = FO1Config()
     t0 = time.perf_counter()
     model = FO1Model.random_init(cfg, seed=0, dtype=torch.bfloat16,
                                  device="cuda",
-                                 tokenizer=host.FallbackTokenizer())
+                                 tokenizer=FallbackTokenizer())
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    sm.log(f"full width: {n_params / 1e9:.3f}B params bf16, random init "
+    sm.log(f"FO1 full width: {n_params / 1e9:.3f}B params bf16, random init "
            f"{time.perf_counter() - t0:.1f} s")
-    msgs = [_messages(100 + i, host.OD_template) for i in range(3)]
+    msgs = [_messages(100 + i, OD_template) for i in range(3)]
     min_launches = len(cfg.vision.fullatt_block_indexes) + \
         cfg.text.num_hidden_layers
 
@@ -195,8 +389,8 @@ def phase_full(sm, FO1Model, fa, host):
         per_request.append(n)
         decoded = res.num_steps - 1  # the first token comes from prefill
         tok_s = decoded / (stage["decode"] / 1e3) if decoded else 0.0
-        boxes = host.extract_predictions_to_bboxes(res.text, DEMO_BOXES)
-        sm.log(f"request {i}: prompt {res.prompt_len} tokens, "
+        boxes = extract(res.text, DEMO_BOXES)
+        sm.log(f"FO1 request {i}: prompt {res.prompt_len} tokens, "
                f"prepare {stage['prepare']:.1f} ms, encode "
                f"{stage['encode']:.1f} ms, prefill {stage['prefill']:.1f} ms,"
                f" decode {stage['decode']:.1f} ms ({res.num_steps} tokens, "
@@ -205,7 +399,7 @@ def phase_full(sm, FO1Model, fa, host):
                f"parsed boxes {boxes}")
         sm.check(n >= min_launches and
                  bool(np.isfinite(res.prefill_logits).all()),
-                 f"request {i}: flash launches {n} >= {min_launches} and "
+                 f"FO1 request {i}: flash launches {n} >= {min_launches} and "
                  f"finite prefill logits")
     launches = fa.flash_attention.launches
 
@@ -223,65 +417,204 @@ def phase_full(sm, FO1Model, fa, host):
         got, ref = outs["kernel"][i], outs["plain"][i]
         err = (got - ref).abs().max().item()
         bound = PATH_REL_TOL * max(1.0, ref.abs().max().item())
-        sm.check(err <= bound, f"kernel path vs plain path, {what}: "
+        sm.check(err <= bound, f"FO1 kernel path vs plain path, {what}: "
                  f"max_abs_err={err:.3e} (bound {bound:.3e} = "
                  f"{PATH_REL_TOL:g} x max(1, max|plain|))")
-    return launches, per_request
+    return model, launches, per_request
+
+
+def phase_upn(sm, upn_mod, msda):
+    cfg_min = 2 * 6  # 6 encoder + 6 decoder layers
+    t0 = time.perf_counter()
+    upn = upn_mod.UPNWrapper.random_init(seed=0, dtype=torch.bfloat16,
+                                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in upn.model.parameters())
+    sm.log(f"UPN full width (Swin-L + UPNConfig()): {n_params / 1e6:.1f}M "
+           f"params bf16, random init {time.perf_counter() - t0:.1f} s")
+    images = [_synthetic_image(200 + i) for i in range(3)]
+    msda.ms_deform_attn_core.launches = 0
+    per_request = []
+    for i, img in enumerate(images):
+        before = msda.ms_deform_attn_core.launches
+        stage = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        raw = upn.inference(img, stage_ms=stage)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n = msda.ms_deform_attn_core.launches - before
+        per_request.append(n)
+        finite = bool(np.isfinite(raw["original_xyxy_boxes"]).all()
+                      and np.isfinite(raw["scores"]).all())
+        sm.log(f"UPN request {i}: transform {stage['transform']:.1f} ms, "
+               f"backbone {stage['backbone']:.1f} ms, encoder "
+               f"{stage['encoder']:.1f} ms, decoder {stage['decoder']:.1f} "
+               f"ms + postprocess {stage['postprocess']:.1f} ms, total "
+               f"{total_ms:.1f} ms, peak memory {peak_gb:.2f} GiB, msda "
+               f"launches {n}, best score {raw['scores'][0, 0, 0]:.4f}")
+        sm.check(n >= cfg_min and finite and raw["scores"].shape == (1, 900, 1),
+                 f"UPN request {i}: msda launches {n} >= {cfg_min}, 900 "
+                 f"finite boxes and scores")
+    launches = msda.ms_deform_attn_core.launches
+
+    padded, hw, _ = upn.prepare(images[0])
+    x, valid = upn.model_input(padded[None], np.array([hw], np.int32))
+    captured = {}
+
+    def record(value, shapes, loc, aw):
+        key = "encoder" if loc.shape[1] == value.shape[1] else "decoder"
+        captured.setdefault(key, (value, shapes, loc, aw))
+        return msda.ms_deform_attn_core(value, shapes, loc, aw)
+
+    outs = {}
+    for name, core in (("kernel", record),
+                       ("plain", msda.ms_deform_attn_core_reference)):
+        upn.model.use_msda_core(core)
+        outs[name] = upn.model(x, valid)
+    upn.model.use_msda_core(msda.ms_deform_attn_core)
+    got, ref = outs["kernel"]["memory"].float(), outs["plain"]["memory"].float()
+    err = (got - ref).abs().max().item()
+    bound = PATH_REL_TOL * max(1.0, ref.abs().max().item())
+    sm.check(err <= bound, f"UPN kernel path vs plain path, encoder output: "
+             f"max_abs_err={err:.3e} (bound {bound:.3e} = {PATH_REL_TOL:g} x "
+             f"max(1, max|plain|))")
+    ik = set(outs["kernel"]["topk_idx"][0].tolist())
+    ip = set(outs["plain"]["topk_idx"][0].tolist())
+    sm.log(f"UPN kernel path vs plain path: top-900 index sets overlap "
+           f"{len(ik & ip)}/900; boxes max_abs_diff "
+           f"{(outs['kernel']['pred_boxes'] - outs['plain']['pred_boxes']).abs().max().item():.3e}")
+
+    times, errs = {}, []
+    for key in ("encoder", "decoder"):
+        value, shapes, loc, aw = captured[key]
+        errs.append(_msda_compare(sm, msda, f"{key} (request 0's inputs)",
+                                  value, shapes, loc, aw))
+        times[key] = _msda_time(sm, msda, f"{key} (request 0's inputs)",
+                                value, shapes, loc, aw)
+    return upn, launches, per_request, times, max(errs)
+
+
+def phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template, extract):
+    image = _synthetic_image(300)
+    fa.flash_attention.launches = 0
+    msda.ms_deform_attn_core.launches = 0
+    upn_ms = {}
+    t0 = time.perf_counter()
+    raw = upn.inference(image, stage_ms=upn_ms)
+    det = upn.filter(raw, min_score=0.0, nms_value=0.8)
+    boxes = [[float(v) for v in b] for b in det["original_xyxy_boxes"][0]]
+    boxes = boxes[:100]
+    t_upn = (time.perf_counter() - t0) * 1e3
+    stage = {}
+    res = fo1.generate(_messages(0, OD_template, boxes, image),
+                       max_new_tokens=32, stage_ms=stage)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "ms_deform_attn_core": msda.ms_deform_attn_core.launches}
+    parsed = extract(res.text, boxes)
+    sm.log(f"UPN -> FO1: UPN + filter {t_upn:.1f} ms ({len(boxes)} of "
+           f"{len(det['original_xyxy_boxes'][0])} proposals kept), FO1 "
+           f"prompt {res.prompt_len} tokens, prepare {stage['prepare']:.1f}"
+           f" ms, encode {stage['encode']:.1f} ms, prefill "
+           f"{stage['prefill']:.1f} ms, decode {stage['decode']:.1f} ms "
+           f"({res.num_steps} tokens), total {total_ms:.1f} ms; parsed "
+           f"boxes {parsed}")
+    sm.check(launches["flash_attention"] > 0
+             and launches["ms_deform_attn_core"] >= 12 and len(boxes) > 0
+             and bool(np.isfinite(res.prefill_logits).all()),
+             f"UPN -> FO1 path: launches {launches}, {len(boxes)} boxes in "
+             f"the request, finite prefill logits")
+    return launches
 
 
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from vlm_fo1_tpu_torch import host
+    from vlm_fo1_tpu_torch.config import FO1Config
     from vlm_fo1_tpu_torch.models.fo1 import FO1Model
+    from vlm_fo1_tpu_torch.ops import cuda_lib, msda
     from vlm_fo1_tpu_torch.ops import flash_attention as fa
+    from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
+    from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
+    from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
+        FallbackTokenizer,
+    )
+    from vlm_fo1_tpu_torch.task_templates import OD_template
+    from vlm_fo1_tpu_torch.upn import wrapper as upn_mod
 
     sm = Smoke(_card())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # phase 0: environment
     sm.log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
            f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}"
            f", {torch.cuda.device_count()} visible")
-    try:
-        import PIL
-        sm.log(f"Pillow {PIL.__version__} imports")
-    except ImportError:
-        sm.log("Pillow does not import")
-        raise
+    import PIL
+    sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build
-    build_s = fa.build()
-    sm.log(f"built flash-attention kernel in {build_s:.2f} s")
+    # phase 1: build both kernels, one nvcc each, started together
+    t0 = time.perf_counter()
+    build_s = cuda_lib.build(["flash_attention", "msda"])
+    sm.log("built in parallel: " + ", ".join(
+        f"{n}.cu {s:.2f} s" for n, s in build_s.items())
+        + f"; {time.perf_counter() - t0:.2f} s in all")
 
-    # phase 2: kernel vs plain
-    max_err, times = phase_kernel(sm, fa, host.build_vit_plan,
-                                  host.FO1Config().vision)
+    # phases 2-3: kernels vs their plain versions
+    flash_err, flash_times = phase_flash(sm, fa, build_vit_plan,
+                                         FO1Config().vision)
+    msda_err = phase_msda(sm, msda)
 
-    # phase 3: tiny f32, card vs cpu
-    phase_tiny(sm, FO1Model, host)
+    # phases 4-5: tiny f32, card vs cpu
+    phase_tiny_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template)
+    phase_tiny_upn(sm, upn_mod, msda)
 
-    # phase 4: full width
-    launches, per_request = phase_full(sm, FO1Model, fa, host)
-    sm.check("jax" not in sys.modules, "the port ran without importing jax")
+    # phases 6-8: full width
+    fo1, flash_launches, flash_per_request = phase_fo1(
+        sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, fa,
+        extract_predictions_to_bboxes)
+    upn, msda_launches, msda_per_request, msda_times, msda_real_err = \
+        phase_upn(sm, upn_mod, msda)
+    path_launches = phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template,
+                                  extract_predictions_to_bboxes)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
+    sm.check(not bad, f"the port ran without importing jax or vlm_fo1_tpu "
+             f"({bad[:5]})")
+    sm.log(f"smoke took {time.perf_counter() - t_start:.1f} s after start")
 
     if sm.failures:
         print(f"chip_smoke: {len(sm.failures)} check(s) failed",
               file=sys.stderr)
         return 1
-    vit_ms, vit_plain_ms = times["vit_full"]
+    vit, enc = flash_times["vit_full"], msda_times["encoder"]
     print(sm.card)
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/flash_attention.cu",
         "replaces": "vlm_fo1_tpu/ops/flash_attention.py:104",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": vit_ms, "plain_ms": vit_plain_ms,
-        "prefill_ms": times["prefill"][0],
-        "prefill_plain_ms": times["prefill"][1],
-        "launches_per_request": per_request,
+        "launches": flash_launches, "max_abs_err": flash_err,
+        "ms": vit["ms"], "plain_ms": vit["plain_ms"],
+        "bound_ms": vit["bound_ms"], "bound_by": vit["bound_by"],
+        "library_ms": vit["library_ms"],
+        "prefill": flash_times["prefill"],
+        "launches_per_request": flash_per_request,
+        "launches_upn_fo1_path": path_launches["flash_attention"],
+    }, {
+        "name": "ms_deform_attn_core", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/msda.cu",
+        "replaces": "vlm_fo1_tpu/ops/msda_pallas.py:495",
+        "launches": msda_launches,
+        "max_abs_err": max(msda_err, msda_real_err),
+        "ms": enc["ms"], "plain_ms": enc["plain_ms"],
+        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
+        "library_ms": None,
+        "decoder": msda_times["decoder"],
+        "launches_per_request": msda_per_request,
+        "launches_upn_fo1_path": path_launches["ms_deform_attn_core"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

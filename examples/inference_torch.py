@@ -5,7 +5,7 @@ The counterpart of examples/inference.py: 7 provided boxes + an OD prompt
 yet, so the weights are random (`--random-init tiny|3b`, seeded).
 
     python examples/inference_torch.py --random-init tiny --device cpu
-    python examples/inference_torch.py --random-init 3b --device cuda
+    python examples/inference_torch.py --random-init 3b
 
 Without --image a seeded synthetic 1288x966 image stands in for the demo
 photo.
@@ -21,14 +21,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from PIL import Image  # noqa: E402
 
-from vlm_fo1_tpu_torch.host import (  # noqa: E402
-    FallbackTokenizer,
-    FO1Config,
-    OD_template,
+from vlm_fo1_tpu_torch.config import FO1Config  # noqa: E402
+from vlm_fo1_tpu_torch.models.fo1 import FO1Model  # noqa: E402
+from vlm_fo1_tpu_torch.postprocess import (  # noqa: E402
     draw_bboxes_and_save,
     extract_predictions_to_bboxes,
 )
-from vlm_fo1_tpu_torch.models.fo1 import FO1Model  # noqa: E402
+from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (  # noqa: E402
+    FallbackTokenizer,
+)
+from vlm_fo1_tpu_torch.task_templates import OD_template  # noqa: E402
 
 BBOX_LIST = [
     [161.0, 11.0, 292.0, 127.0], [268.0, 61.0, 428.0, 226.0],
@@ -42,7 +44,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--random-init", choices=["tiny", "3b"], required=True,
                     help="model size; weights are random (seeded)")
-    ap.add_argument("--device", required=True, help="cpu, cuda, cuda:1, ...")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default), cuda:1, ..., or cpu")
     ap.add_argument("--image", default=None,
                     help="image path (default: synthetic 1288x966 image)")
     ap.add_argument("--target", default="orange")

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread, to_numpy  # noqa: F401
+from torch_parity import one_torch_thread, port_config, to_numpy  # noqa: F401
 from vlm_fo1_tpu.checkpoint import (
     convert_davit,
     convert_text_model,
@@ -19,12 +19,13 @@ from vlm_fo1_tpu.models.projector import convert_projector_params
 from vlm_fo1_tpu_torch.convert import state_dict_from_jax_params
 from vlm_fo1_tpu_torch.models.fo1 import FO1Model
 
-CFG = FO1Config.tiny()
+JCFG = FO1Config.tiny()
+CFG = port_config(JCFG)
 
 
 @pytest.fixture(scope="module")
 def bridged():
-    params = to_numpy(JaxFO1Model.random_init(CFG, seed=3).params)
+    params = to_numpy(JaxFO1Model.random_init(JCFG, seed=3).params)
     return params, state_dict_from_jax_params(params, CFG)
 
 
@@ -33,18 +34,32 @@ def _tower(sd, prefix):
             if k.startswith(prefix)}
 
 
+@pytest.mark.parametrize("which", ["tiny", "released"])
+def test_port_config_is_a_copy_of_the_jax_config(which):
+    """The port's own FO1Config equals the JAX one field for field, with
+    the same defaults and the same `tiny()`."""
+    import dataclasses
+
+    from vlm_fo1_tpu_torch.config import FO1Config as PortFO1Config
+
+    jax_cfg = JCFG if which == "tiny" else FO1Config()
+    port_cfg = PortFO1Config.tiny() if which == "tiny" else PortFO1Config()
+    assert dataclasses.asdict(port_cfg) == dataclasses.asdict(jax_cfg)
+    assert port_config(jax_cfg) == port_cfg
+
+
 def test_round_trip_through_the_checkpoint_converters(bridged):
     params, sd = bridged
     back = {
         "vision_tower": convert_vision_tower(_tower(sd, "vision_tower."),
-                                             CFG.vision),
+                                             JCFG.vision),
         "vision_tower_aux": convert_davit(_tower(sd, "vision_tower_aux."),
-                                          CFG.davit),
-        "text": convert_text_model(_tower(sd, "text."), CFG.text),
+                                          JCFG.davit),
+        "text": convert_text_model(_tower(sd, "text."), JCFG.text),
         "mm_projector": convert_projector_params(
-            _tower(sd, "mm_projector."), CFG.mm_projector_type),
+            _tower(sd, "mm_projector."), JCFG.mm_projector_type),
         "mm_projector_aux": convert_projector_params(
-            _tower(sd, "mm_projector_aux."), CFG.mm_projector_aux_type),
+            _tower(sd, "mm_projector_aux."), JCFG.mm_projector_aux_type),
         "hfre": {},
     }
     want, want_def = jax.tree.flatten(params)

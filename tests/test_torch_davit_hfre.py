@@ -7,7 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread, rand, to_numpy  # noqa: F401
+from torch_parity import (  # noqa: F401
+    one_torch_thread,
+    port_config,
+    rand,
+    to_numpy,
+)
 from vlm_fo1_tpu.config import FO1Config
 from vlm_fo1_tpu.models.davit import davit_forward, init_davit_params
 from vlm_fo1_tpu.models.hfre import hfre_forward as jax_hfre
@@ -25,19 +30,20 @@ from vlm_fo1_tpu_torch.models.projector import build_projector
 from vlm_fo1_tpu_torch.ops.roi_align import roi_align_mean_separable
 
 ATOL = 1e-4
-CFG = FO1Config.tiny()
+JCFG = FO1Config.tiny()
+CFG = port_config(JCFG)
 BOXES = np.array([[3.0, 5.0, 60.0, 41.0], [0.0, 0.0, 96.0, 96.0],
                   [40.5, 10.25, 44.0, 90.0], [0.0, 10.0, 0.0, 10.0]],
                  np.float32)
 
 
 def test_davit_stage_maps():
-    params = init_davit_params(jax.random.PRNGKey(2), CFG.davit)
+    params = init_davit_params(jax.random.PRNGKey(2), JCFG.davit)
     model = DaViT(CFG.davit)
     model.load_state_dict(davit_state_dict(to_numpy(params), CFG.davit),
                           strict=True)
     img = rand(np.random.default_rng(0), 1, 96, 96, 3)
-    ref = jax.jit(davit_forward, static_argnums=1)(params, CFG.davit,
+    ref = jax.jit(davit_forward, static_argnums=1)(params, JCFG.davit,
                                                    jnp.asarray(img))
     with torch.no_grad():
         out = model(torch.from_numpy(img))
@@ -66,7 +72,7 @@ def test_hfre_forward():
     aux_maps = [rand(rng, 24 >> i, 24 >> i, c) for i, c in enumerate(dims)]
     vt_map = rand(rng, 12, 20, CFG.hfre.vt_region_feature_dim)
     vt_boxes = BOXES * np.array([280 / 96, 168 / 96] * 2, np.float32)
-    ref = jax_hfre({}, CFG.hfre, [jnp.asarray(m) for m in aux_maps],
+    ref = jax_hfre({}, JCFG.hfre, [jnp.asarray(m) for m in aux_maps],
                    jnp.asarray(BOXES), jnp.asarray(vt_map),
                    jnp.asarray(vt_boxes))
     out = hfre_forward(CFG.hfre, [torch.from_numpy(m) for m in aux_maps],

@@ -19,7 +19,7 @@ import pytest
 from PIL import Image
 
 from conftest import StubTokenizer
-from torch_parity import one_torch_thread, to_numpy  # noqa: F401
+from torch_parity import one_torch_thread, port_config, to_numpy  # noqa: F401
 from vlm_fo1_tpu.config import FO1Config
 from vlm_fo1_tpu.models.fo1 import FO1Model as JaxFO1Model, _splice_embeds
 from vlm_fo1_tpu.postprocess import extract_predictions_to_bboxes
@@ -28,16 +28,17 @@ from vlm_fo1_tpu.task_templates import OD_template
 from vlm_fo1_tpu_torch.convert import state_dict_from_jax_params
 from vlm_fo1_tpu_torch.models.fo1 import FO1Model
 
-CFG = dataclasses.replace(
+JCFG = dataclasses.replace(
     FO1Config.tiny(),
     text=dataclasses.replace(FO1Config.tiny().text, tie_word_embeddings=False))
+CFG = port_config(JCFG)
 MAX_PIXELS = 128 * 128
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
 def models():
-    jm = JaxFO1Model.random_init(CFG, seed=5, tokenizer=StubTokenizer())
+    jm = JaxFO1Model.random_init(JCFG, seed=5, tokenizer=StubTokenizer())
     tm = FO1Model(CFG, device="cpu", tokenizer=StubTokenizer())
     tm.load_state_dict(state_dict_from_jax_params(to_numpy(jm.params), CFG),
                        strict=True)
@@ -94,7 +95,7 @@ def test_encode_and_prefill_logits(models):
                             jnp.asarray(reg_pos), pad_len=pad_len)
     pos = np.zeros((3, 1, pad_len), np.int32)
     pos[:, :, :s] = pj["position_ids"]
-    _, lj = prefill(jm.params["text"], CFG.text, embeds, jnp.asarray(pos),
+    _, lj = prefill(jm.params["text"], JCFG.text, embeds, jnp.asarray(pos),
                     jnp.asarray([s]), cache_len=pad_len + 4)
     _, lt = tm.prefill(pt, tm.splice(pt, vt, rt), s + 4)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=1e-4)
@@ -132,20 +133,33 @@ def test_stop_sequence_matches(models):
 
 
 def test_port_and_example_never_import_jax(tmp_path):
+    """Importing every module of the port and running the three port
+    examples on the CPU loads neither JAX nor the JAX package."""
+    runs = [
+        ("inference_torch.py", ["--max-new-tokens", "2", "--output",
+                                str(tmp_path / "fo1.jpg")]),
+        ("run_upn_torch.py", ["--output", str(tmp_path / "upn.jpg")]),
+        ("inference_with_upn_torch.py", ["--max-new-tokens", "2",
+                                         "--output",
+                                         str(tmp_path / "upn_fo1.jpg")]),
+    ]
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import vlm_fo1_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "sys.argv = ['inference_torch.py', '--random-init', 'tiny',\n"
-        "            '--device', 'cpu', '--max-new-tokens', '2',\n"
-        f"            '--output', {str(tmp_path / 'out.jpg')!r}]\n"
-        "runpy.run_path('examples/inference_torch.py', run_name='__main__')\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
+        f"for script, extra in {runs!r}:\n"
+        "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
+        " + extra\n"
+        "    runpy.run_path('examples/' + script, run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'vlm_fo1_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX')\n")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "NO_JAX" in out.stdout and "parsed boxes" in out.stdout
+    assert "NO_JAX" in out.stdout
+    assert out.stdout.count("parsed boxes") == 2
+    assert "proposals above" in out.stdout

@@ -13,7 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread, rand, to_numpy  # noqa: F401
+from torch_parity import (  # noqa: F401
+    one_torch_thread,
+    port_config,
+    rand,
+    to_numpy,
+)
 from vlm_fo1_tpu.config import FO1Config
 from vlm_fo1_tpu.models.llm import init_text_params, mrope_cos_sin as jax_mrope
 from vlm_fo1_tpu.preprocess.mrope import get_rope_index
@@ -49,9 +54,11 @@ def _positions():
 @pytest.fixture(scope="module", params=sorted(CFGS))
 def run(request):
     cfg = CFGS[request.param]
+    pcfg = port_config(cfg)
     params = init_text_params(jax.random.PRNGKey(1), cfg)
-    text = TextModel(cfg)
-    text.load_state_dict(text_state_dict(to_numpy(params), cfg), strict=True)
+    text = TextModel(pcfg)
+    text.load_state_dict(text_state_dict(to_numpy(params), pcfg),
+                         strict=True)
     rng = np.random.default_rng(0)
     embeds = rand(rng, 1, SP, cfg.hidden_size)
     pos, delta = _positions()
@@ -69,10 +76,10 @@ def run(request):
 
     def torch_run(gen_cfg):
         with torch.no_grad():
-            cache, logits = prefill(text, cfg,
+            cache, logits = prefill(text, pcfg,
                                     torch.from_numpy(embeds[:, :S]),
                                     torch.from_numpy(pos).long(), S + MAX_NEW)
-            tokens, steps = decode_loop(text, cfg, gen_cfg, cache, logits, S,
+            tokens, steps = decode_loop(text, pcfg, gen_cfg, cache, logits, S,
                                         delta)
         return logits.numpy(), tokens.numpy(), steps
 
@@ -82,7 +89,8 @@ def run(request):
 def test_mrope_tables_match():
     pos, _ = _positions()
     cos_j, sin_j = jax_mrope(jnp.asarray(pos), CFGS["tied"])
-    cos_t, sin_t = mrope_cos_sin(torch.from_numpy(pos).long(), CFGS["tied"])
+    cos_t, sin_t = mrope_cos_sin(torch.from_numpy(pos).long(),
+                                 port_config(CFGS["tied"]))
     np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), atol=1e-6)
     np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), atol=1e-6)
 

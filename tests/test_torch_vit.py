@@ -7,7 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import one_torch_thread, rand, to_numpy  # noqa: F401
+from torch_parity import (  # noqa: F401
+    one_torch_thread,
+    port_config,
+    rand,
+    to_numpy,
+)
 from vlm_fo1_tpu.config import FO1Config
 from vlm_fo1_tpu.models.vit import (
     captures_to_feature_map as jax_feature_map,
@@ -22,12 +27,13 @@ from vlm_fo1_tpu_torch.models.vit import (
 )
 
 ATOL = 1e-4  # f32 through 4 blocks, different summation order
-CFG = FO1Config.tiny().vision
+JCFG = FO1Config.tiny().vision
+CFG = port_config(JCFG)
 
 
 @pytest.fixture(scope="module")
 def towers():
-    params = init_vit_params(jax.random.PRNGKey(0), CFG)
+    params = init_vit_params(jax.random.PRNGKey(0), JCFG)
     vit = VisionTransformer(CFG)
     vit.load_state_dict(vit_state_dict(to_numpy(params), CFG), strict=True)
     return params, vit
@@ -37,11 +43,11 @@ def towers():
 @pytest.mark.parametrize("grid", [(1, 12, 20), (1, 8, 8)])
 def test_tokens_captures_and_feature_map(towers, grid):
     params, vit = towers
-    plan = build_vit_plan(grid, CFG)
+    plan = build_vit_plan(grid, JCFG)
     rng = np.random.default_rng(0)
     patches = rand(rng, 1, plan.seq_pad, CFG.patch_dim)
     tok_j, cap_j = vit_forward(
-        params, CFG, jnp.asarray(patches), jnp.asarray(plan.rot_cos),
+        params, JCFG, jnp.asarray(patches), jnp.asarray(plan.rot_cos),
         jnp.asarray(plan.rot_sin), jnp.asarray(plan.valid),
         num_windows=plan.num_windows,
         inv_unit_idx=jnp.asarray(plan.inv_unit_idx))

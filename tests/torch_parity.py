@@ -1,6 +1,12 @@
 """Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
-one torch thread per test module (six xdist workers share the CPUs) and the
-JAX tree -> numpy conversion that feeds the weight bridge."""
+one torch thread per test module (six xdist workers share the CPUs), the
+JAX tree -> numpy conversion that feeds the weight bridge, and the JAX
+config -> port config rebuild (the port keeps its own copies of the config
+dataclasses and never imports the JAX package)."""
+
+import dataclasses
+import importlib
+import typing
 
 import jax
 import numpy as np
@@ -22,3 +28,28 @@ def to_numpy(tree):
 
 def rand(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
+
+
+def _build(cls, values: dict):
+    hints = typing.get_type_hints(cls)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = values[f.name]
+        if dataclasses.is_dataclass(hints[f.name]):
+            v = _build(hints[f.name], v)
+        kw[f.name] = v
+    return cls(**kw)
+
+
+def port_config(jax_cfg):
+    """The port's dataclass of the same name and module path
+    (`vlm_fo1_tpu.X` -> `vlm_fo1_tpu_torch.X`), rebuilt field for field from
+    `dataclasses.asdict(jax_cfg)`; raises if the two differ in any field."""
+    jax_cls = type(jax_cfg)
+    module = importlib.import_module(
+        jax_cls.__module__.replace("vlm_fo1_tpu", "vlm_fo1_tpu_torch", 1))
+    cfg = _build(getattr(module, jax_cls.__name__),
+                 dataclasses.asdict(jax_cfg))
+    if dataclasses.asdict(cfg) != dataclasses.asdict(jax_cfg):
+        raise AssertionError(f"port config differs: {cfg} vs {jax_cfg}")
+    return cfg

@@ -23,7 +23,7 @@ import re
 import numpy as np
 import torch
 
-from vlm_fo1_tpu.config import DaViTConfig, FO1Config, TextConfig, ViTConfig
+from vlm_fo1_tpu_torch.config import DaViTConfig, FO1Config, TextConfig, ViTConfig
 
 
 def _t(a) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlm_fo1_tpu.config import DaViTConfig
+from vlm_fo1_tpu_torch.config import DaViTConfig
 from vlm_fo1_tpu_torch import nn as tnn
 
 

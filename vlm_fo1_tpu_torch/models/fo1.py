@@ -2,10 +2,10 @@
 Qwen2.5-VL ViT + DaViT -> HFRE region features -> two projectors ->
 embedding splice -> Qwen2.5 trunk prefill -> greedy / top-p decode.
 
-The host steps are the JAX package's own jax-free functions
-(`vlm_fo1_tpu.preprocess`), re-composed here for single-image prompts;
+The host steps are the port's copies of the JAX package's host functions
+(`vlm_fo1_tpu_torch.preprocess`), composed here for single-image prompts;
 parsing the answer back to boxes is left to callers
-(`host.extract_predictions_to_bboxes`). Batched, serving, session and video
+(`postprocess.extract_predictions_to_bboxes`). Batched, serving, session and video
 paths are not ported yet.
 
 Submodules carry the checkpoint's tower names: `vision_tower`,
@@ -15,27 +15,28 @@ Submodules carry the checkpoint's tower names: `vision_tower`,
 
 from __future__ import annotations
 
-import contextlib
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch import nn
 
-from vlm_fo1_tpu import preprocess as pp
-from vlm_fo1_tpu.config import FO1Config
-from vlm_fo1_tpu.preprocess.image import (
+from vlm_fo1_tpu_torch import nn as tnn
+from vlm_fo1_tpu_torch import preprocess as pp
+from vlm_fo1_tpu_torch.config import FO1Config
+from vlm_fo1_tpu_torch.preprocess.image import (
     AUX_IMAGE_MEAN,
     AUX_IMAGE_STD,
     qwen_patch_norm_vectors,
 )
-from vlm_fo1_tpu.preprocess.tokens import (
+from vlm_fo1_tpu_torch.preprocess.tokens import (
     build_chat_tokens,
     expand_multimodal_tokens,
 )
-from vlm_fo1_tpu.preprocess.windowing import build_vit_plan, pad_pixel_values
-from vlm_fo1_tpu_torch import nn as tnn
+from vlm_fo1_tpu_torch.preprocess.windowing import (
+    build_vit_plan,
+    pad_pixel_values,
+)
 from vlm_fo1_tpu_torch.models.davit import DaViT
 from vlm_fo1_tpu_torch.models.hfre import hfre_forward
 from vlm_fo1_tpu_torch.models.llm import TextModel
@@ -45,6 +46,7 @@ from vlm_fo1_tpu_torch.models.vit import (
     captures_to_feature_map,
 )
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
+from vlm_fo1_tpu_torch.runtime.device import resolve_device, stage_timer
 from vlm_fo1_tpu_torch.runtime.generate import (
     GenerationConfig,
     decode_loop,
@@ -62,31 +64,12 @@ class GenerationResult:
     prefill_logits: np.ndarray   # [V] fp32 last-token logits of the prompt
 
 
-def resolve_device(device) -> torch.device:
-    """An explicit device; asking for CUDA where there is none raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but CUDA is unavailable")
-    return device
-
-
-@contextlib.contextmanager
-def _stage(out: dict | None, name: str, device: torch.device):
-    """Record the wall-clock ms of the block, ended by a device
-    synchronise, as out[name]; a no-op when out is None."""
-    t0 = time.perf_counter()
-    yield
-    if out is not None:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        out[name] = (time.perf_counter() - t0) * 1e3
-
-
 class FO1Model(nn.Module):
-    def __init__(self, cfg: FO1Config, *, device, dtype=torch.float32,
-                 tokenizer=None):
-        """Allocates uninitialised parameters on `device`; fill them with
-        `random_init` or `load_state_dict`."""
+    def __init__(self, cfg: FO1Config, *, device="cuda",
+                 dtype=torch.float32, tokenizer=None):
+        """Allocates uninitialised parameters on `device` (the card unless
+        the caller asks for the CPU); fill them with `random_init` or
+        `load_state_dict`."""
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -113,7 +96,7 @@ class FO1Model(nn.Module):
 
     @classmethod
     def random_init(cls, cfg: FO1Config, seed: int = 0,
-                    dtype=torch.float32, *, device,
+                    dtype=torch.float32, *, device="cuda",
                     tokenizer=None) -> "FO1Model":
         """std-0.02 normal weights drawn on `device` from a seeded
         torch.Generator, zero biases, unit norm scales."""
@@ -264,12 +247,12 @@ class FO1Model(nn.Module):
         stage ended by a device synchronise."""
         cfg = self.cfg
         stop_seqs = self._stop_token_sequences(stop_strings)
-        with _stage(stage_ms, "prepare", self.device):
+        with stage_timer(stage_ms, "prepare", self.device):
             prep = self.prepare(messages, max_pixels=max_pixels)
-        with _stage(stage_ms, "encode", self.device):
+        with stage_timer(stage_ms, "encode", self.device):
             vision_tokens, region_tokens = self.encode(prep)
         s = prep["splice"].seq_len
-        with _stage(stage_ms, "prefill", self.device):
+        with stage_timer(stage_ms, "prefill", self.device):
             embeds = self.splice(prep, vision_tokens, region_tokens)
             cache, first_logits = self.prefill(prep, embeds,
                                                s + max_new_tokens)
@@ -281,7 +264,7 @@ class FO1Model(nn.Module):
         generator = None
         if temperature != 0.0:
             generator = torch.Generator(device=self.device).manual_seed(seed)
-        with _stage(stage_ms, "decode", self.device):
+        with stage_timer(stage_ms, "decode", self.device):
             tokens, steps = decode_loop(
                 self.text, cfg.text, gen_cfg, cache, first_logits, s,
                 int(prep["rope_deltas"][0, 0]), generator)

@@ -22,7 +22,7 @@ import math
 
 import torch
 
-from vlm_fo1_tpu.config import HFREConfig
+from vlm_fo1_tpu_torch.config import HFREConfig
 from vlm_fo1_tpu_torch.ops.roi_align import roi_align_mean_separable
 
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vlm_fo1_tpu.config import ViTConfig
+from vlm_fo1_tpu_torch.config import ViTConfig
 from vlm_fo1_tpu_torch import nn as tnn
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
 

@@ -62,6 +62,28 @@ class LayerNorm(nn.Module):
         return layer_norm(self.weight, self.bias, x, self.eps)
 
 
+def group_norm(weight, bias, x, groups, eps=1e-5):
+    """Channel-last GroupNorm over [..., H, W, C]: fp32 statistics, cast
+    back to x's dtype before the affine."""
+    *lead, h, w, c = x.shape
+    xf = _promoted(x).reshape(*lead, h * w, groups, c // groups)
+    mean = xf.mean(dim=(-3, -1), keepdim=True)
+    var = (xf - mean).pow(2).mean(dim=(-3, -1), keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(*lead, h, w, c)
+    return xf.to(x.dtype) * weight + bias
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, groups, dim, eps=1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.groups, self.eps = groups, eps
+
+    def forward(self, x):
+        return group_norm(self.weight, self.bias, x, self.groups, self.eps)
+
+
 class Weight(nn.Module):
     """A bare `weight` parameter of any shape (patch embed, token table)."""
 
@@ -99,6 +121,19 @@ def conv2d_nhwc(conv: Conv2d, x, stride=1, padding=0, groups=1):
     return y.permute(0, 2, 3, 1)
 
 
+def mlp(layers, x):
+    """Reference MLP (module/mlp.py): relu between layers, none after the
+    last. Each product runs in the wider of x's and the weights' dtypes,
+    as JAX promotes a float32 input against bfloat16 weights."""
+    for i, lin in enumerate(layers):
+        dt = torch.promote_types(x.dtype, lin.weight.dtype)
+        x = F.linear(x.to(dt), lin.weight.to(dt),
+                     None if lin.bias is None else lin.bias.to(dt))
+        if i < len(layers) - 1:
+            x = F.relu(x)
+    return x
+
+
 def embedding(weight, ids):
     """Row lookup with ids clamped to [0, V-1], like jnp.take(mode="clip")."""
     return weight[ids.clamp(0, weight.shape[0] - 1)]
@@ -129,3 +164,27 @@ def sdpa(q, k, v, mask=None, scale=None):
         logits = logits.masked_fill(~mask, MASK_FILL)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, vh).transpose(-2, -3)
+
+
+class MultiheadAttention(nn.Module):
+    """torch.nn.MultiheadAttention's parameters (`in_proj_weight` [3C, C],
+    `in_proj_bias`, `out_proj`), computed through `sdpa` as the JAX
+    package's `_mha` does (no mask, batch first)."""
+
+    def __init__(self, dim, num_heads):
+        super().__init__()
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
+        self.out_proj = Linear(dim, dim)
+        self.num_heads = num_heads
+
+    def forward(self, q, k, v):
+        b, n, c = q.shape
+        w, bias = self.in_proj_weight, self.in_proj_bias
+        hd = c // self.num_heads
+        qp = F.linear(q, w[:c], bias[:c]).reshape(b, n, self.num_heads, hd)
+        kp = F.linear(k, w[c:2 * c], bias[c:2 * c]).reshape(
+            b, -1, self.num_heads, hd)
+        vp = F.linear(v, w[2 * c:], bias[2 * c:]).reshape(
+            b, -1, self.num_heads, hd)
+        return self.out_proj(sdpa(qp, kp, vp).reshape(b, n, c))

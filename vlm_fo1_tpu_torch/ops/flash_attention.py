@@ -9,25 +9,20 @@ bound, an arbitrary per-key `kv_valid` [Sk] bool mask and `scale`.
 (`csrc/flash_attention.cu`) for CUDA tensors and takes the plain PyTorch
 version (`flash_attention_reference`) only for CPU tensors. The kernel is
 built with nvcc into `build/` at the repository root on first use and loaded
-with ctypes; a failed build or launch raises.
+with ctypes (`cuda_lib`); a failed build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import os
-import subprocess
-import time
 
 import torch
 
+from vlm_fo1_tpu_torch.ops import cuda_lib
+
 NEG_INF = -1e30
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "flash_attention.cu")
-_ROOT = os.path.dirname(_PKG)
-_LIB_PATH = os.path.join(_ROOT, "build", "libfo1_flash_attention.so")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
@@ -59,30 +54,10 @@ def flash_attention_reference(q, k, v, *, causal=False, kv_len=None,
     return torch.matmul(p.to(q.dtype), vx)
 
 
-def build() -> float:
-    """Compile the kernel library if it is missing or older than its source;
-    returns the seconds spent (0.0 when nothing was built)."""
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(_SRC)):
-        return 0.0
-    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    subprocess.run(
-        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC],
-        check=True)
-    os.replace(tmp, _LIB_PATH)
-    return time.perf_counter() - t0
-
-
 def _load():
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = cuda_lib.load("flash_attention")
         fn = lib.fo1_flash_attention_fwd
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,

@@ -13,7 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
-from vlm_fo1_tpu.config import TextConfig
+from vlm_fo1_tpu_torch.config import TextConfig
 from vlm_fo1_tpu_torch.models.llm import (
     TextModel,
     init_kv_cache,
