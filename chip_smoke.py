@@ -4,8 +4,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build both CUDA kernels from the checkout's sources, one nvcc each,
-     started together;
+  1. build the four CUDA kernels from the checkout's sources, one nvcc
+     each, started together;
   2. flash attention vs its plain PyTorch version on the card: every mask
      mode and GQA at small shapes, then the two main-path shapes (ViT full
      attention S=6912 D=80 with the real 68x92 window-plan mask; trunk
@@ -33,7 +33,28 @@ Phases (any failure exits non-zero and prints no result line):
      kernel timed on that request's own encoder and decoder inputs;
   8. UPN -> FO1: the first 100 proposals after filter(min_score=0,
      nms=0.8) go into one 3B grounding request (the phase-6 model); both
-     kernels' launches counted over this path.
+     kernels' launches counted over this path;
+  9. the int4 matmul vs its plain version: odd small shapes (M in
+     {1, 5, 9, 128}, N off every tile) in f32 with TF32 off (<= 2e-5 x
+     max(1, max|plain|)) and bf16 (<= 2e-2 x the same), then the 3B trunk
+     shapes (q/o 2048->2048, k/v 2048->256, gate/up 2048->11008, down
+     11008->2048) at M = 1 and M = 1771, with kernel, plain and F.linear
+     (pre-dequantized bf16 weight) device times from CUDA graph replays
+     beside the bound, and the kernel's eager per-call time; at M = 1 the
+     weights rotate through copies larger than the L2 cache, as decode
+     finds them;
+ 10. the fused int4 SwiGLU vs its plain version the same way: the shapes of
+     tests/test_quant.py, then D = 2048, I = 11008 at M = 1 and 1771, two
+     runs bit-equal, kernel / plain / three-F.linear times;
+ 11. FO1Config.tiny() f32 (untied head) in the int4 mode, and with I = 128
+     in the int4-mlp mode: greedy tokens on the card (kernels) equal those
+     on the CPU (plain versions), the same quantized bytes on both;
+ 12. FO1Config() bf16 in the int4, int4-mlp, int8-all and w8a8 modes
+     (`quant.quantize_model` on fresh random weights): grounding requests
+     with the 7 demo boxes and 32 tokens, stage times, quantized bytes,
+     peak memory and kernel launches per request; in the int4 and int4-mlp
+     modes the first request's region tokens and prefill logits compared
+     between the kernel path and the plain path.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -98,6 +119,58 @@ def _timeit(fn, n=5):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def _timeit_rotating(fn, copies, n=10):
+    """Mean ms of eager fn(*args) calls that cycle through `copies` (lists
+    of arguments): with copies larger than the L2 cache in all, every call
+    reads its weights from device memory, as a decode step does."""
+    for args in copies:
+        fn(*args)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(n):
+        fn(*copies[i % len(copies)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def _graph_ms(fn, copies, reps=5):
+    """Device ms per call: one call per copy (at least 10, cycling) captured
+    in a CUDA graph and replayed, so no host time sits between the kernels
+    (a decode-sized call is shorter than its Python wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in copies:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    n = max(10, len(copies))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*copies[i % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (reps * n)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _copies(nbytes, make):
+    """Enough copies from make() to hold at least 120 MB (the L2 is 50 MB)."""
+    return [make() for _ in range(max(1, -(-120_000_000 // nbytes)))]
 
 
 def _bound(nbytes, flops, peak_flops):
@@ -528,14 +601,298 @@ def phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template, extract):
     return launches
 
 
+# ------------------------------------------------------------ int4 kernels
+
+INT4_F32_TOL = 2e-5
+# the 3B trunk's int4 linears: q and o, k and v, gate and up, down
+TRUNK_LINEARS = (("q_o", 2048, 2048), ("k_v", 2048, 256),
+                 ("gate_up", 2048, 11008), ("down", 11008, 2048))
+PREFILL_ROWS = 1771  # prompt tokens of a demo request with 7 boxes
+
+
+def _rel_check(sm, what, got, ref, tol):
+    """max |got - ref| against tol x max(1, max|ref|)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    bound = tol * max(1.0, ref.float().abs().max().item())
+    sm.check(bool(torch.isfinite(got).all()) and err <= bound,
+             f"{what} max_abs_err={err:.3e} (bound {bound:.3e} = {tol:g} x "
+             f"max(1, max|plain|))")
+    return err
+
+
+def _both_dtypes(sm, what, kernel, plain, x, repeat=False):
+    """The kernel on x in f32 (TF32 off) and bf16 against the plain version
+    on the same values in f32; optionally two kernel runs bit-equal."""
+    errs = []
+    for dtype, tol in ((torch.float32, INT4_F32_TOL),
+                       (torch.bfloat16, BF16_TOL)):
+        xd = x.to(dtype)
+        got = kernel(xd)
+        again = kernel(xd) if repeat else got
+        torch.cuda.synchronize()
+        errs.append(_rel_check(sm, f"{what} {str(dtype)[6:]}", got,
+                               plain(xd.float()), tol))
+        if repeat:
+            sm.check(torch.equal(got, again),
+                     f"{what} {str(dtype)[6:]}: two runs bit-equal")
+    return max(errs)
+
+
+def phase_int4_matmul(sm, quant, i4):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def weight(n, k):
+        return quant.quantize_weight_int4(
+            torch.randn(n, k, device="cuda", generator=gen) * 0.02)
+
+    errs = []
+    for m, k, n in ((1, 32, 24), (5, 64, 130), (9, 3420, 200),
+                    (128, 96, 4100), (5, 2048, 300), (77, 256, 130)):
+        packed, scale = weight(n, k)
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        errs.append(_both_dtypes(
+            sm, f"int4_matmul M={m} K={k} N={n}",
+            lambda xd: i4.int4_matmul(xd, packed, scale),
+            lambda xf: i4.int4_matmul_reference(xf, packed, scale), x))
+    times = {}
+    for name, k, n in TRUNK_LINEARS:
+        packed, scale = weight(n, k)
+        w_deq = (quant.unpack_int4(packed).float() * scale).t() \
+            .to(torch.bfloat16).contiguous()                     # [n, k]
+        for m in (1, PREFILL_ROWS):
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            errs.append(_both_dtypes(
+                sm, f"int4_matmul {name} M={m} K={k} N={n}",
+                lambda xd: i4.int4_matmul(xd, packed, scale),
+                lambda xf: i4.int4_matmul_reference(xf, packed, scale), x,
+                repeat=True))
+            xb = x.to(torch.bfloat16)
+            cold = m == 1
+            wq = _copies(packed.numel(), lambda: (packed.clone(),
+                                                  scale.clone())) \
+                if cold else [(packed, scale)]
+            wl = _copies(w_deq.numel() * 2, lambda: (w_deq.clone(),)) \
+                if cold else [(w_deq,)]
+            kernel = (lambda p, sc: i4.int4_matmul(xb, p, sc))
+            ms = _graph_ms(kernel, wq)
+            eager_ms = _timeit_rotating(kernel, wq)
+            plain_ms = _graph_ms(
+                lambda p, sc: i4.int4_matmul_reference(xb, p, sc), wq)
+            lib_ms = _graph_ms(lambda w: F.linear(xb, w), wl)
+            nbytes = packed.numel() + 4 * n + 2 * m * k + 2 * m * n
+            bound_ms, bound_by = _bound(nbytes, 2 * m * k * n, BF16_FLOPS)
+            times[f"{name} M={m}"] = {
+                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "eager_ms": eager_ms}
+            sm.log(f"time int4_matmul {name} {k}->{n} M={m} bf16: kernel "
+                   f"{ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
+                   f"{plain_ms:.4f} ms, F.linear on the dequantized bf16 "
+                   f"weight {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                   f"{bound_by} ({nbytes / 1e6:.2f} MB, "
+                   f"{2 * m * k * n / 1e9:.2f} GFLOP; CUDA events over CUDA "
+                   f"graph replays{', weights cold' if cold else ''})")
+            del wq, wl
+    return max(errs), times
+
+
+def _mlp_node(quant, gen, d, i):
+    def w(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen) * 0.02
+    gate_pk, gate_s = quant.quantize_weight_int4(w(i, d))
+    up_pk, up_s = quant.quantize_weight_int4(w(i, d))
+    down_pk, down_s = quant.quantize_weight_int4_outpack(w(d, i))
+    return {"gate_pk": gate_pk, "gate_s": gate_s, "up_pk": up_pk,
+            "up_s": up_s, "down_pk": down_pk, "down_s": down_s}
+
+
+def phase_int4_mlp(sm, quant, i4mlp):
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs, times = [], {}
+    for m, d, i in ((1, 64, 256), (5, 256, 768), (16, 128, 128),
+                    (200, 128, 256), (300, 64, 128), (8, 48, 128)):
+        node = _mlp_node(quant, gen, d, i)
+        x = torch.randn(m, d, device="cuda", generator=gen)
+        errs.append(_both_dtypes(
+            sm, f"int4_mlp M={m} D={d} I={i}",
+            lambda xd: i4mlp.int4_mlp(xd, node),
+            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True))
+    d, i = 2048, 11008
+    node = _mlp_node(quant, gen, d, i)
+    lo, hi = quant.unpack_int4_halves(node["down_pk"])
+    lib_w = [(quant.unpack_int4(node[k]).float() * node[s]).t()
+             .to(torch.bfloat16).contiguous()
+             for k, s in (("gate_pk", "gate_s"), ("up_pk", "up_s"))]
+    lib_w.append((torch.cat([lo, hi], -1).float() * node["down_s"]).t()
+                 .to(torch.bfloat16).contiguous())               # [D, I]
+    node_bytes = sum(t.numel() * t.element_size() for t in node.values())
+    for m in (1, PREFILL_ROWS):
+        x = torch.randn(m, d, device="cuda", generator=gen)
+        errs.append(_both_dtypes(
+            sm, f"int4_mlp D={d} I={i} M={m}",
+            lambda xd: i4mlp.int4_mlp(xd, node),
+            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True))
+        xb = x.to(torch.bfloat16)
+        cold = m == 1
+        nodes = _copies(node_bytes, lambda: ({k: v.clone() for k, v in
+                                              node.items()},)) \
+            if cold else [(node,)]
+        kernel = (lambda nd: i4mlp.int4_mlp(xb, nd))
+        ms = _graph_ms(kernel, nodes)
+        eager_ms = _timeit_rotating(kernel, nodes)
+        plain_ms = _graph_ms(
+            lambda nd: i4mlp.int4_mlp_reference(xb, nd), nodes)
+        lib_ms = _graph_ms(lambda g, u, dn: F.linear(
+            F.silu(F.linear(xb, g)) * F.linear(xb, u), dn), [lib_w])
+        nbytes = node_bytes + 2 * m * d * 2
+        flops = 6 * m * d * i
+        bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+        times[f"M={m}"] = {"ms": ms, "plain_ms": plain_ms,
+                           "library_ms": lib_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "eager_ms": eager_ms}
+        sm.log(f"time int4_mlp D={d} I={i} M={m} bf16: kernel {ms:.4f} ms "
+               f"(eager calls {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+               f"three F.linear + silu on the dequantized bf16 weights "
+               f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+               f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.1f} GFLOP; CUDA "
+               f"events over CUDA graph replays"
+               f"{', weights cold' if cold else ''})")
+        del nodes
+    return max(errs), times
+
+
+def phase_tiny_quant(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                     quant, i4, i4mlp):
+    """Tiny FO1 f32, untied head: int4 (I = 96) and int4-mlp (I = 128, the
+    fused kernel's I % 128 rule), quantized on each device from the same
+    full-precision weights, card (kernels) vs CPU (plain versions)."""
+    tiny = FO1Config.tiny()
+    tok = FallbackTokenizer()
+    for mode, inter in (("int4", tiny.text.intermediate_size),
+                        ("int4-mlp", 128)):
+        cfg = dataclasses.replace(tiny, text=dataclasses.replace(
+            tiny.text, tie_word_embeddings=False, intermediate_size=inter))
+        cpu = FO1Model.random_init(cfg, seed=0, device="cpu", tokenizer=tok)
+        gpu = FO1Model(cfg, device="cuda", tokenizer=tok)
+        gpu.load_state_dict(cpu.state_dict())
+        quant.quantize_model(cpu, mode)
+        quant.quantize_model(gpu, mode)
+        sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
+        same = sd_c.keys() == sd_g.keys() and all(
+            torch.equal(v, sd_g[k].cpu()) for k, v in sd_c.items())
+        msgs = _messages(1, OD_template)
+        counts = {}
+        res = {}
+        for name, model in (("cpu", cpu), ("card", gpu)):
+            before = (i4.int4_matmul.launches, i4mlp.int4_mlp.launches)
+            res[name] = model.generate(msgs, max_new_tokens=16,
+                                       max_pixels=256 * 256)
+            counts[name] = (i4.int4_matmul.launches - before[0],
+                            i4mlp.int4_mlp.launches - before[1])
+        kernel = 0 if mode == "int4" else 1
+        logit_err = np.abs(res["cpu"].prefill_logits
+                           - res["card"].prefill_logits).max()
+        sm.check(same and np.array_equal(res["cpu"].token_ids,
+                                         res["card"].token_ids)
+                 and counts["card"][kernel] > 0 and counts["cpu"] == (0, 0),
+                 f"tiny FO1 f32 {mode} (I={inter}): quantized bytes equal on "
+                 f"both devices {same}; greedy tokens card == cpu: "
+                 f"{res['card'].token_ids.tolist()} vs "
+                 f"{res['cpu'].token_ids.tolist()}; prefill logits "
+                 f"max_abs_err={logit_err:.3e}; (int4_matmul, int4_mlp) "
+                 f"launches card {counts['card']} cpu {counts['cpu']}")
+
+
+def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                    quant, fa, i4, i4mlp, extract, mode, n_requests):
+    """FO1Config() bf16 in one serving mode on fresh random weights."""
+    cfg = FO1Config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FO1Model.random_init(cfg, seed=0, dtype=torch.bfloat16,
+                                 device="cuda",
+                                 tokenizer=FallbackTokenizer())
+    full_gb = quant.quantized_bytes(model) / 1e9
+    t1 = time.perf_counter()
+    quant.quantize_model(model, mode)
+    torch.cuda.synchronize()
+    q_gb = quant.quantized_bytes(model) / 1e9
+    sm.log(f"FO1 {mode}: parameters and buffers {full_gb:.3f} GB bf16 -> "
+           f"{q_gb:.3f} GB quantized (random init {t1 - t0:.1f} s, quantize"
+           f" {time.perf_counter() - t1:.1f} s, peak so far "
+           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    msgs = [_messages(100 + i, OD_template) for i in range(n_requests)]
+    i4.int4_matmul.launches = 0
+    i4mlp.int4_mlp.launches = 0
+    per_request = []
+    for i, m in enumerate(msgs):
+        before = (i4.int4_matmul.launches, i4mlp.int4_mlp.launches)
+        stage = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = model.generate(m, max_new_tokens=32, stage_ms=stage)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n = (i4.int4_matmul.launches - before[0],
+             i4mlp.int4_mlp.launches - before[1])
+        per_request.append({"int4_matmul": n[0], "int4_mlp": n[1],
+                            "forwards": res.num_steps})
+        sm.log(f"FO1 {mode} request {i}: prompt {res.prompt_len} tokens, "
+               f"prepare {stage['prepare']:.1f} ms, encode "
+               f"{stage['encode']:.1f} ms, prefill {stage['prefill']:.1f} ms,"
+               f" decode {stage['decode']:.1f} ms ({res.num_steps} tokens), "
+               f"total {total_ms:.1f} ms, peak memory {peak_gb:.2f} GiB, "
+               f"launches int4_matmul {n[0]} ({n[0] / res.num_steps:.1f} per "
+               f"forward), int4_mlp {n[1]} ({n[1] / res.num_steps:.1f} per "
+               f"forward), parsed boxes {extract(res.text, DEMO_BOXES)}")
+        want = {"int4": n[0] > 0, "int4-mlp": n[1] > 0}.get(mode, True)
+        sm.check(want and bool(np.isfinite(res.prefill_logits).all()),
+                 f"FO1 {mode} request {i}: finite prefill logits, kernel "
+                 f"launches {n}")
+    launches = {"int4_matmul": i4.int4_matmul.launches,
+                "int4_mlp": i4mlp.int4_mlp.launches}
+
+    if mode in ("int4", "int4-mlp"):
+        prep = model.prepare(msgs[0])
+        outs = {}
+        for name, kernels in (("kernel", True), ("plain", False)):
+            model.attention = (fa.flash_attention if kernels
+                               else fa.flash_attention_reference)
+            quant.use_int4_kernels(model, kernels)
+            vis, reg = model.encode(prep)
+            emb = model.splice(prep, vis, reg)
+            _, logits = model.prefill(prep, emb, prep["splice"].seq_len + 1)
+            outs[name] = (reg.float(), logits)
+        model.attention = fa.flash_attention
+        quant.use_int4_kernels(model, True)
+        for j, what in enumerate(("region tokens",
+                                  "prefill last-token logits")):
+            got, ref = outs["kernel"][j], outs["plain"][j]
+            err = (got - ref).abs().max().item()
+            bound = PATH_REL_TOL * max(1.0, ref.abs().max().item())
+            sm.check(err <= bound, f"FO1 {mode} kernel path vs plain path, "
+                     f"{what}: max_abs_err={err:.3e} (bound {bound:.3e} = "
+                     f"{PATH_REL_TOL:g} x max(1, max|plain|))")
+    del model
+    torch.cuda.empty_cache()
+    return launches, per_request
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from vlm_fo1_tpu_torch.config import FO1Config
+    from vlm_fo1_tpu_torch import quant
     from vlm_fo1_tpu_torch.models.fo1 import FO1Model
     from vlm_fo1_tpu_torch.ops import cuda_lib, msda
     from vlm_fo1_tpu_torch.ops import flash_attention as fa
+    from vlm_fo1_tpu_torch.ops import int4_matmul as i4
+    from vlm_fo1_tpu_torch.ops import int4_mlp as i4mlp
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
     from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
@@ -556,9 +913,10 @@ def main():
     import PIL
     sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build both kernels, one nvcc each, started together
+    # phase 1: build the four kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    build_s = cuda_lib.build(["flash_attention", "msda"])
+    build_s = cuda_lib.build(["flash_attention", "msda", "int4_matmul",
+                              "int4_mlp"])
     sm.log("built in parallel: " + ", ".join(
         f"{n}.cu {s:.2f} s" for n, s in build_s.items())
         + f"; {time.perf_counter() - t0:.2f} s in all")
@@ -580,6 +938,20 @@ def main():
         phase_upn(sm, upn_mod, msda)
     path_launches = phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template,
                                   extract_predictions_to_bboxes)
+    del fo1, upn
+    torch.cuda.empty_cache()
+
+    # phases 9-12: the quantized serving modes
+    i4_err, i4_times = phase_int4_matmul(sm, quant, i4)
+    mlp_err, mlp_times = phase_int4_mlp(sm, quant, i4mlp)
+    phase_tiny_quant(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                     quant, i4, i4mlp)
+    quant_runs = {}
+    for mode, n_req in (("int4", 2), ("int4-mlp", 2), ("int8-all", 1),
+                        ("w8a8", 1)):
+        quant_runs[mode] = phase_quant_fo1(
+            sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, quant,
+            fa, i4, i4mlp, extract_predictions_to_bboxes, mode, n_req)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
     sm.check(not bad, f"the port ran without importing jax or vlm_fo1_tpu "
@@ -615,6 +987,24 @@ def main():
         "decoder": msda_times["decoder"],
         "launches_per_request": msda_per_request,
         "launches_upn_fo1_path": path_launches["ms_deform_attn_core"],
+    }, {
+        "name": "int4_matmul", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "vlm_fo1_tpu/ops/int4_matmul.py:60",
+        "launches": quant_runs["int4"][0]["int4_matmul"],
+        "max_abs_err": i4_err, "shape": "gate_up 2048->11008 M=1 bf16",
+        **i4_times["gate_up M=1"],
+        "shapes": i4_times,
+        "launches_per_request": quant_runs["int4"][1],
+    }, {
+        "name": "int4_mlp", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/int4_mlp.cu",
+        "replaces": "vlm_fo1_tpu/ops/int4_mlp.py:84",
+        "launches": quant_runs["int4-mlp"][0]["int4_mlp"],
+        "max_abs_err": mlp_err, "shape": "D=2048 I=11008 M=1 bf16",
+        **mlp_times["M=1"],
+        "shapes": mlp_times,
+        "launches_per_request": quant_runs["int4-mlp"][1],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

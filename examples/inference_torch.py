@@ -6,6 +6,10 @@ yet, so the weights are random (`--random-init tiny|3b`, seeded).
 
     python examples/inference_torch.py --random-init tiny --device cpu
     python examples/inference_torch.py --random-init 3b
+    python examples/inference_torch.py --random-init 3b --quant int4
+
+`--quant` picks a serving mode of `vlm_fo1_tpu_torch.quant` (int8, int8-all,
+w8a8, int4, int4-mlp), applied to the weights before the request.
 
 Without --image a seeded synthetic 1288x966 image stands in for the demo
 photo.
@@ -27,6 +31,7 @@ from vlm_fo1_tpu_torch.postprocess import (  # noqa: E402
     draw_bboxes_and_save,
     extract_predictions_to_bboxes,
 )
+from vlm_fo1_tpu_torch.quant import MODES, quantize_model  # noqa: E402
 from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (  # noqa: E402
     FallbackTokenizer,
 )
@@ -52,6 +57,9 @@ def main(argv=None):
     ap.add_argument("--max-new-tokens", type=int, default=64)
     ap.add_argument("--output", default=None,
                     help="save the image with the parsed boxes drawn")
+    ap.add_argument("--quant", choices=MODES, default="none",
+                    help="serving mode: weight quantization applied after "
+                         "the random init")
     args = ap.parse_args(argv)
 
     if args.image:
@@ -71,6 +79,7 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.random_init == "3b" else torch.float32
     model = FO1Model.random_init(cfg, seed=0, dtype=dtype, device=args.device,
                                  tokenizer=FallbackTokenizer())
+    quantize_model(model, args.quant)
     stage_ms = {}
     result = model.generate(messages, max_new_tokens=args.max_new_tokens,
                             stage_ms=stage_ms)

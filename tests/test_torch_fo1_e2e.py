@@ -134,10 +134,12 @@ def test_stop_sequence_matches(models):
 
 def test_port_and_example_never_import_jax(tmp_path):
     """Importing every module of the port and running the three port
-    examples on the CPU loads neither JAX nor the JAX package."""
+    examples on the CPU (the FO1 one also in the int4 mode) loads neither
+    JAX nor the JAX package."""
     runs = [
         ("inference_torch.py", ["--max-new-tokens", "2", "--output",
                                 str(tmp_path / "fo1.jpg")]),
+        ("inference_torch.py", ["--max-new-tokens", "2", "--quant", "int4"]),
         ("run_upn_torch.py", ["--output", str(tmp_path / "upn.jpg")]),
         ("inference_with_upn_torch.py", ["--max-new-tokens", "2",
                                          "--output",
@@ -161,5 +163,5 @@ def test_port_and_example_never_import_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "NO_JAX" in out.stdout
-    assert out.stdout.count("parsed boxes") == 2
+    assert out.stdout.count("parsed boxes") == 3
     assert "proposals above" in out.stdout

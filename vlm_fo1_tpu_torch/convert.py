@@ -14,6 +14,11 @@ From the JAX tree this unstacks the ViT's {"window": [G, W, ...],
 "full": [G, ...]} scan layout and the trunk's [L, ...] stack, transposes
 [in, out] linears back to [out, in], and reshapes the ViT patch embedding
 back to the checkpoint's [D, C, T, ph, pw].
+
+Quantized trees (`vlm_fo1_tpu.quant`) bridge too, into a port model
+quantized to the same mode (`quant.quantize_model`): int8 `w_q` (transposed),
+packed int4 `w_q4`, scales, the `a8` marker, the `fused_int4` MLP node and a
+row-int8 `embed_tokens` move byte for byte; nothing is quantized again.
 """
 
 from __future__ import annotations
@@ -37,10 +42,24 @@ def _take(tree, *idx):
     return np.asarray(tree)[idx]
 
 
+def _key(name, leaf):
+    return f"{name}.{leaf}" if name else leaf
+
+
 def _linear(sd, name, p):
-    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
-    if "b" in p:
-        sd[f"{name}.bias"] = _t(p["b"])
+    """A linear node: full precision {"w" [in, out]}, int8 {"w_q" [in, out],
+    "scale", "a8"?} or int4 {"w_q4" [in/2, out], "scale"}, each with an
+    optional bias. int8 weights are transposed to the port's [out, in];
+    packed int4 bytes and scales move as they are."""
+    if "w" in p:
+        sd[_key(name, "weight")] = _t(np.asarray(p["w"]).T)
+    elif "w_q" in p:
+        sd[_key(name, "w_q")] = _t(np.asarray(p["w_q"]).T)
+    else:
+        sd[_key(name, "w_q4")] = _t(p["w_q4"])
+    for leaf, key in (("scale", "scale"), ("a8", "a8"), ("b", "bias")):
+        if leaf in p:
+            sd[_key(name, key)] = _t(p[leaf])
 
 
 def _norm(sd, name, p):
@@ -81,7 +100,12 @@ def vit_state_dict(p: dict, cfg: ViTConfig) -> dict:
 
 
 def text_state_dict(p: dict, cfg: TextConfig) -> dict:
-    sd = {"embed_tokens.weight": _t(p["embed_tokens"]["w"])}
+    emb = p["embed_tokens"]
+    if "w_q" in emb:  # row-int8 table
+        sd = {"embed_tokens.w_q": _t(emb["w_q"]),
+              "embed_tokens.scale": _t(emb["scale"])}
+    else:
+        sd = {"embed_tokens.weight": _t(emb["w"])}
     for i in range(cfg.num_hidden_layers):
         lp = _take(p["layers"], i)
         b = f"layers.{i}"
@@ -90,6 +114,10 @@ def text_state_dict(p: dict, cfg: TextConfig) -> dict:
               lp["post_attention_layernorm"])
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             _linear(sd, f"{b}.self_attn.{name}", lp["attn"][name])
+        if "fused_int4" in lp["mlp"]:  # the int4-mlp mode's fused node
+            for k, v in lp["mlp"]["fused_int4"].items():
+                sd[f"{b}.mlp.{k}"] = _t(v)
+            continue
         for name in ("gate_proj", "up_proj", "down_proj"):
             _linear(sd, f"{b}.mlp.{name}", lp["mlp"][name])
     _norm(sd, "norm", p["norm"])
@@ -122,13 +150,13 @@ def davit_state_dict(p: dict, cfg: DaViTConfig) -> dict:
 def projector_state_dict(p: dict, projector_type: str) -> dict:
     if projector_type == "identity":
         return {}
+    sd = {}
     if projector_type == "linear":
-        lp = p["layers"][0]
-        return {"weight": _t(np.asarray(lp["w"]).T), "bias": _t(lp["b"])}
+        _linear(sd, "", p["layers"][0])
+        return sd
     if not re.match(r"^mlp(\d+)x_gelu$", projector_type):
         raise NotImplementedError(
             f"projector {projector_type!r} is not ported yet")
-    sd = {}
     for k, lp in enumerate(p["layers"]):
         _linear(sd, str(2 * k), lp)
     return sd

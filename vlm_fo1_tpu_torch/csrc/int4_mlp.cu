@@ -1,0 +1,83 @@
+// One fused int4 SwiGLU MLP for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel vlm_fo1_tpu/ops/int4_mlp.py
+// (`int4_mlp_matmul`, kernel `_kernel`):
+//   g = (x @ gate) * gs, u = (x @ up) * us   gate/up [D/2, I], contraction halves
+//   h = silu(g) * u                           f32, cast to x's dtype
+//   y = (h @ down) * ds                       down [I, D/2], output halves:
+//                                             byte [i, n] = w[i, n] | w[i, n+D/2] << 4
+// with f32 sums and y in x's dtype (f32 or bf16).
+//
+// What bounds it on the card: at decode (M = 1) the 3*D*I/2 packed bytes
+// (33.8 MB at D = 2048, I = 11008: 10 us at 3.35 TB/s); at prefill
+// (M ~ 1771) the 6*M*D*I operations (240 GFLOP, 0.24 ms at the bf16
+// tensor-core rate).
+//
+// Design: the TPU kernel walks I in tiles inside one output block and
+// carries y across its sequential grid steps. Blocks on the card run in
+// parallel and carry nothing, and an atomic sum over I tiles would give
+// outputs that change from run to run. So one call is two products, each
+// with a fixed summation order:
+//   1. gate and up together (both weights' bytes staged per step, one x
+//      tile), the SwiGLU epilogue writes h [M, I] in x's dtype -- the cast
+//      the TPU kernel makes before its down dot;
+//   2. h @ down over the output-half packing: each block owns a range of
+//      output columns, its low and high nibbles, and sums all of I itself.
+// h is the only intermediate in device memory: 2*M*I bytes in bf16 (22 KB
+// at decode), small beside the weights. M <= 8 takes the streaming path of
+// int4_core.cuh for both products (two more launches sum the row slices in
+// order); M > 8 takes the tiled paths (tensor-core tiles for bf16 x, f32
+// FMA tiles for f32 x).
+
+#include "int4_core.cuh"
+
+namespace {
+
+template <typename T>
+cudaError_t run(const void* x, const void* gate, const void* gs, const void* up,
+                const void* us, const void* down, const void* ds, void* h,
+                void* ws, void* out, int M, int D, int I, int s1, int s2,
+                cudaStream_t st) {
+  using namespace int4k;
+  const T* xt = static_cast<const T*>(x);
+  const int8_t* g = static_cast<const int8_t*>(gate);
+  const int8_t* u = static_cast<const int8_t*>(up);
+  const int8_t* dn = static_cast<const int8_t*>(down);
+  const float* gsf = static_cast<const float*>(gs);
+  const float* usf = static_cast<const float*>(us);
+  const float* dsf = static_cast<const float*>(ds);
+  T* ht = static_cast<T*>(h);
+  T* o = static_cast<T*>(out);
+  if (M <= 8) {
+    float* part = static_cast<float*>(ws);
+    launch_gemv<T, CK, 2>(xt, g, u, part, M, D, I, s1, st);
+    launch_finish<T, 2, SWIGLU>(part, gsf, usf, ht, M, I, s1, st);
+    launch_gemv<T, OUT, 1>(ht, dn, nullptr, part, M, I, D, s2, st);
+    launch_finish<T, 1, SCALE>(part, dsf, nullptr, o, M, D, s2, st);
+  } else {
+    launch_gemm<CK, 2, SWIGLU>(xt, g, u, gsf, usf, ht, M, D, I, st);
+    launch_gemm<OUT, 1, SCALE>(ht, dn, nullptr, dsf, nullptr, o, M, I, D, st);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x [M, D] (dtype 0 = f32, 1 = bf16); gate/up [D/2, I] int8, gs/us [I] f32;
+// down [I, D/2] int8, ds [D] f32; h [M, I] and out [M, D] in x's dtype.
+// M <= 8 needs ws of max(2*s1*M*I, s2*M*D) floats. Returns the CUDA error
+// of the launches (0 = none).
+extern "C" int fo1_int4_mlp(const void* x, const void* gate, const void* gs,
+                            const void* up, const void* us, const void* down,
+                            const void* ds, void* h, void* ws, void* out, int M,
+                            int D, int I, int s1, int s2, int dtype,
+                            void* stream) {
+  if (M <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == 0
+          ? run<float>(x, gate, gs, up, us, down, ds, h, ws, out, M, D, I, s1, s2, st)
+          : run<__nv_bfloat16>(x, gate, gs, up, us, down, ds, h, ws, out, M, D, I,
+                               s1, s2, st);
+  return static_cast<int>(err);
+}

@@ -11,7 +11,8 @@ cache up to the written slot.
 
 Parameters use the checkpoint's names: `embed_tokens.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj`, `layers.{i}.mlp.*`, `norm.weight`,
-and `lm_head.weight` when the head is untied.
+and `lm_head.weight` when the head is untied. The serving modes of `quant`
+swap in int8 / int4 linears, a row-int8 token table and `Int4MLP`.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 from vlm_fo1_tpu_torch.config import TextConfig
 from vlm_fo1_tpu_torch import nn as tnn
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
+from vlm_fo1_tpu_torch.ops.int4_mlp import KEYS, int4_mlp
 
 
 def mrope_cos_sin(position_ids, cfg: TextConfig):
@@ -116,6 +118,25 @@ class MLP(nn.Module):
         return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
 
 
+class Int4MLP(nn.Module):
+    """The int4-mlp mode's fused SwiGLU (the JAX package's `fused_int4`
+    node, `quant.quantize_mlp_int4`): gate/up packed [D/2, I] along the
+    contraction halves, down packed [I, D/2] along the output halves, f32
+    scales. `fn` is the int4 MLP CUDA kernel on the card; set it to
+    `ops.int4_mlp.int4_mlp_reference` to run the plain version."""
+
+    def __init__(self, node: dict):
+        super().__init__()
+        for k in KEYS:
+            self.register_buffer(k, node[k])
+        self.fn = int4_mlp
+
+    def forward(self, x):
+        node = {k: getattr(self, k) for k in KEYS}
+        y = self.fn(x.reshape(-1, x.shape[-1]).contiguous(), node)
+        return y.reshape(x.shape)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
@@ -147,14 +168,25 @@ class TextModel(nn.Module):
             x = x + layer.self_attn(layer.input_layernorm(x), cos, sin,
                                     kv_cache["k"][i], kv_cache["v"][i],
                                     offset, attention)
+            if isinstance(layer.mlp, Int4MLP) and self.cfg.hidden_act != "silu":
+                raise ValueError("the fused int4 MLP computes SwiGLU only")
             x = x + layer.mlp(layer.post_attention_layernorm(x))
         return self.norm(x)
 
     def embed(self, ids):
+        """Token rows; a row-int8 table dequantizes the gathered rows into
+        the model's compute dtype (the final norm's)."""
+        if isinstance(self.embed_tokens, tnn.QEmbedding8):
+            return self.embed_tokens.lookup(ids, self.norm.weight.dtype)
         return tnn.embedding(self.embed_tokens.weight, ids)
 
     def logits(self, hidden):
-        """[B, S, D] -> [B, S, V] fp32 logits (tied or untied head)."""
+        """[B, S, D] -> [B, S, V] fp32 logits (tied or untied head; int8
+        and int4 heads as the JAX package's `lm_head_logits`)."""
         head = (self.embed_tokens if self.cfg.tie_word_embeddings
                 else self.lm_head)
+        if isinstance(head, (tnn.QEmbedding8, tnn.QLinear8)):
+            return tnn.int8_head_logits(hidden, head.w_q, head.scale)
+        if isinstance(head, tnn.QLinear4):
+            return head(hidden.float())
         return F.linear(hidden.float(), head.weight.float())

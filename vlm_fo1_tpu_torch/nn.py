@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul
+
 MASK_FILL = torch.finfo(torch.float32).min
 
 
@@ -102,6 +104,123 @@ class Linear(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+# static outlier-channel budget of w8a8 (LLM.int8-style decomposition with
+# a fixed channel count, as the JAX package's W8A8_OUTLIER_CHANNELS)
+W8A8_OUTLIER_CHANNELS = 64
+
+
+def exact_int_mm(a, b):
+    """a [M, K] int8 @ b [K, N] int8 -> exact int32 [M, N] via
+    `torch._int_mm`, whose CUDA version needs M > 16 and K, N multiples of
+    8: zero rows and columns are padded in and cut off again, which leaves
+    the product exact."""
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = F.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = F.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a, b)[:m, :n]
+
+
+def w8a8_matmul(x, w_q, scale):
+    """Dynamic per-row int8 activations against int8 weights, as the JAX
+    package's w8a8 branch of `nn.linear`: the top-k activation columns by
+    absmax over all leading dims (k = min(64, in/8), ties to the lower
+    index) skip quantization and meet their dequantized weight rows in f32;
+    the rest quantize per row and take the exact int32 product. x [..., in],
+    w_q [out, in] int8, scale [out] f32 -> [..., out] in x's dtype."""
+    xf = x.float()
+    in_dim = xf.shape[-1]
+    k = min(W8A8_OUTLIER_CHANNELS, in_dim // 8)
+    y_out = 0.0
+    if k > 0:
+        col_amax = xf.abs().reshape(-1, in_dim).amax(dim=0)
+        oidx = torch.sort(col_amax, descending=True, stable=True).indices[:k]
+        w_o = w_q[:, oidx].float() * scale[:, None]          # [out, k]
+        y_out = xf[..., oidx] @ w_o.t()
+        keep = torch.ones(in_dim, dtype=torch.float32, device=x.device)
+        keep[oidx] = 0.0
+        xf = xf * keep
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) \
+        * (1.0 / 127.0)
+    x_q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    acc = exact_int_mm(x_q.reshape(-1, in_dim), w_q.t())
+    acc = acc.reshape(*x.shape[:-1], w_q.shape[0])
+    return (acc.float() * sx * scale + y_out).to(x.dtype)
+
+
+class QLinear8(nn.Module):
+    """int8 linear (the JAX package's `w_q` leaves): weights [out, in] int8
+    with per-output-channel f32 scales. Weight-only by default: the product
+    in x's dtype, then `* scale` in x's dtype. With the `a8` marker
+    (`quant.mark_w8a8`) a call whose second-to-last dim is above 1 (prefill,
+    encode) quantizes its activations per row (`w8a8_matmul`); decode steps
+    stay weight-only."""
+
+    def __init__(self, w_q, scale, bias=None):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("scale", scale)
+        self.register_buffer("a8", None)
+        self.bias = bias
+
+    def forward(self, x):
+        if self.a8 is not None and x.dim() >= 2 and x.shape[-2] > 1:
+            y = w8a8_matmul(x, self.w_q, self.scale)
+        else:
+            y = F.linear(x, self.w_q.to(x.dtype)) * self.scale.to(x.dtype)
+        return y if self.bias is None else y + self.bias
+
+
+class QLinear4(nn.Module):
+    """int4 linear (the JAX package's `w_q4` leaves): nibble-packed
+    [in/2, out] int8 with contraction halves, f32 scales [out]; the product
+    runs through `matmul` (the int4 CUDA kernel on the card; set it to
+    `ops.int4_matmul.int4_matmul_reference` to run the plain version)."""
+
+    def __init__(self, w_q4, scale, bias=None):
+        super().__init__()
+        self.register_buffer("w_q4", w_q4)
+        self.register_buffer("scale", scale)
+        self.bias = bias
+        self.matmul = int4_matmul
+
+    def forward(self, x):
+        y = self.matmul(x.reshape(-1, x.shape[-1]).contiguous(), self.w_q4,
+                        self.scale)
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        return y if self.bias is None else y + self.bias
+
+
+class QEmbedding8(nn.Module):
+    """Row-quantized token table (the JAX package's quantized
+    `embed_tokens`): int8 [V, D] with per-row f32 scales [V]."""
+
+    def __init__(self, w_q, scale):
+        super().__init__()
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("scale", scale)
+
+    def lookup(self, ids, dtype):
+        """Rows of `ids` (clamped like jnp.take(mode="clip")), dequantized
+        into `dtype`; only the gathered rows are converted."""
+        ids = ids.clamp(0, self.w_q.shape[0] - 1)
+        return self.w_q[ids].to(dtype) * self.scale[ids][..., None].to(dtype)
+
+
+def int8_head_logits(hidden, w_q, scale, chunk=16384):
+    """Logits through an int8 head w_q [V, D] with per-row scales [V]: the
+    f32 product with the int8 values, then the scale, [..., V] f32 (no bf16
+    rounding of the logits, which could flip greedy ties). The weights are
+    widened to f32 `chunk` rows at a time."""
+    h = hidden.float()
+    parts = [F.linear(h, w_q[i:i + chunk].float())
+             for i in range(0, w_q.shape[0], chunk)]
+    return torch.cat(parts, dim=-1) * scale
 
 
 class Conv2d(nn.Module):

@@ -2,8 +2,9 @@
 
 Each source compiles with nvcc for `sm_90a` into its own plain-C shared
 library under `build/` at the repository root, at first use and again
-whenever the source is newer than the library. Several sources build in
-parallel, one nvcc process each. Nothing here runs at import time.
+whenever the source or a shared header (`csrc/*.cuh`) is newer than the
+library. Several sources build in parallel, one nvcc process each. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -26,9 +27,15 @@ def library(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared header
+    (`csrc/*.cuh`)."""
     lib = library(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(source(name)))
+    if not os.path.exists(lib):
+        return True
+    csrc = os.path.dirname(source(name))
+    deps = [source(name)] + [os.path.join(csrc, f) for f in os.listdir(csrc)
+                             if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def build(names) -> dict[str, float]:
