@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build the four CUDA kernels from the checkout's sources, one nvcc
+  1. build the five CUDA kernels from the checkout's sources, one nvcc
      each, started together;
   2. flash attention vs its plain PyTorch version on the card: every mask
      mode and GQA at small shapes, then the two main-path shapes (ViT full
@@ -54,7 +54,33 @@ Phases (any failure exits non-zero and prints no result line):
      with the 7 demo boxes and 32 tokens, stage times, quantized bytes,
      peak memory and kernel launches per request; in the int4 and int4-mlp
      modes the first request's region tokens and prefill logits compared
-     between the kernel path and the plain path.
+     between the kernel path and the plain path;
+ 13. the MSDA backward vs its plain version (autograd of the plain core):
+     D in {8, 32} at small levels with out-of-range locations, then phase
+     7's encoder (Lq = S = 85,932) and decoder (Lq = 900) inputs with a
+     seeded upstream gradient, f32 (TF32 off) and bf16, each of the three
+     gradients held to 1e-4 x max(1, max|plain|) (grad_value in bf16 to
+     2e-2 x the same); kernel, plain and bound times;
+ 14. tiny UPN f32 with shared weights: the parameter gradients of a fixed
+     scalar of pred_boxes and pred_logits on the card (both MSDA kernels,
+     4 + 4 launches) equal the CPU's (plain versions), each parameter to
+     1e-4 x its largest CPU gradient + 1e-6; as a negative control, the
+     card run with grad_value, then grad_loc, zeroed in the MSDA backward
+     must fail that check;
+ 15. UPN at the released geometry bf16: forward and backward of such a
+     scalar on a seeded 1288x966 image, twice, with forward / backward ms,
+     peak memory, 12 MSDA forward and 12 backward launches each, all
+     gradients finite;
+ 16. FO1Config.tiny() f32 (full vocabulary): `multimodal_lm_loss` with
+     remat (the ViT's full attention through the flash kernel), loss and
+     every parameter gradient card == CPU to the bounds of phase 14; three
+     AdamW steps on the card;
+ 17. FO1Config() bf16 with remat at the demo geometry (1288x966, 7 demo
+     boxes): loss and gradients with the ViT's full attention through the
+     flash kernel (4 launches) against its plain version (relative L2
+     <= 5e-2), the peak memory of each; then three AdamW steps
+     (`training.train_step.make_train_step`, 12 flash launches) on one
+     seeded batch, loss, ms and peak memory per step.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -302,12 +328,17 @@ def _msda_cost(value, shapes, loc):
     lq = loc.shape[1]
     nbytes = (value.numel() * value.element_size() + loc.numel() * 4
               + loc.numel() // 2 * 4 + b * lq * m * d * 4)
+    return nbytes, 10 * d * _msda_samples(shapes, loc)
+
+
+def _msda_samples(shapes, loc):
+    """Samples with at least one corner of their 2x2 window on the map."""
     hw = torch.tensor(shapes, dtype=torch.float32, device=loc.device)
     x = loc[..., 0] * hw[None, None, None, :, None, 1] - 0.5
     y = loc[..., 1] * hw[None, None, None, :, None, 0] - 0.5
     inside = ((x > -1) & (x < hw[:, 1, None]) & (y > -1)
               & (y < hw[:, 0, None]))
-    return nbytes, 10 * d * int(inside.sum().item())
+    return int(inside.sum().item())
 
 
 def _msda_inputs(gen, shapes, b, lq, m, d, npts, dtype, lo, hi):
@@ -390,7 +421,9 @@ def phase_tiny_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template):
              f"prefill logits max_abs_err={logit_err:.3e}")
 
 
-def phase_tiny_upn(sm, upn_mod, msda):
+def _tiny_upn_pair(upn_mod, msda):
+    """Tiny UPN wrappers with the same f32 weights on the CPU and the card,
+    and one padded 320x256 input."""
     from vlm_fo1_tpu_torch.upn.model import UPNConfig
     from vlm_fo1_tpu_torch.upn.swin import SwinConfig
 
@@ -411,6 +444,11 @@ def phase_tiny_upn(sm, upn_mod, msda):
     gpu = upn_mod.UPNWrapper.random_init(cfg, swin, device="cuda")
     gpu.model.load_state_dict(cpu.model.state_dict())
     padded, hw, _ = cpu.prepare(_synthetic_image(3).resize((320, 256)))
+    return cpu, gpu, padded, hw
+
+
+def phase_tiny_upn(sm, upn_mod, msda):
+    cpu, gpu, padded, hw = _tiny_upn_pair(upn_mod, msda)
     outs = {}
     for name, w in (("cpu", cpu), ("card", gpu)):
         x, valid = w.model_input(padded[None], np.array([hw], np.int32))
@@ -565,7 +603,7 @@ def phase_upn(sm, upn_mod, msda):
                                   value, shapes, loc, aw))
         times[key] = _msda_time(sm, msda, f"{key} (request 0's inputs)",
                                 value, shapes, loc, aw)
-    return upn, launches, per_request, times, max(errs)
+    return upn, launches, per_request, times, max(errs), captured
 
 
 def phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template, extract):
@@ -882,6 +920,393 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
     return launches, per_request
 
 
+# --------------------------------------------------------------- training
+
+# MSDA backward kernel vs its plain version, relative to the largest plain
+# magnitude: float32 sums in another order (grad_value's atomics in no fixed
+# order at all); grad_value rounded to bf16 when value is bf16
+BWD_F32_REL = 1e-4
+BWD_BF16_REL = 2e-2
+# card vs CPU gradients of a whole model in f32 (TF32 off), each parameter
+# against its own largest CPU gradient: many layers summed in another order
+GRAD_RTOL = 1e-4
+GRAD_ATOL = 1e-6
+BWD_NAMES = ("grad_value", "grad_loc", "grad_aw")
+
+
+def _msda_bwd_cost(value, shapes, loc):
+    """(bytes, flops) of the MSDA backward on these inputs: value, g,
+    locations and weights read once, grad_value (value's dtype), grad_loc
+    and grad_aw written once; per sample with a corner on its map ~16 FLOPs
+    per channel (four corner dot products, four scaled adds) and ~30 for
+    the corner weights and the location chain rule."""
+    b, s, m, d = value.shape
+    lq = loc.shape[1]
+    nbytes = (2 * value.numel() * value.element_size() + b * lq * m * d * 4
+              + 2 * loc.numel() * 4 + 2 * (loc.numel() // 2) * 4)
+    return nbytes, (16 * d + 30) * _msda_samples(shapes, loc)
+
+
+def _msda_bwd_compare(sm, msda, name, value, shapes, loc, aw, g):
+    got = msda.ms_deform_attn_core_backward(value, shapes, loc, aw, g)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_core_backward_reference(value.float(), shapes,
+                                                      loc, aw, g)
+    errs = []
+    for what, x, y in zip(BWD_NAMES, got, ref):
+        bf16 = what == "grad_value" and value.dtype == torch.bfloat16
+        tol = BWD_BF16_REL if bf16 else BWD_F32_REL
+        err = (x.float() - y).abs().max().item()
+        bound = tol * max(1.0, y.abs().max().item())
+        want_dtype = value.dtype if what == "grad_value" else torch.float32
+        sm.check(bool(torch.isfinite(x).all()) and err <= bound
+                 and x.dtype == want_dtype,
+                 f"msda backward {name} {str(value.dtype)[6:]} {what} "
+                 f"Lq={loc.shape[1]} max_abs_err={err:.3e} (bound "
+                 f"{bound:.3e} = {tol:g} x max(1, max|plain|))")
+        errs.append(err)
+    return errs
+
+
+def _msda_bwd_time(sm, msda, name, value, shapes, loc, aw, g):
+    ms = _timeit(lambda: msda.ms_deform_attn_core_backward(
+        value, shapes, loc, aw, g))
+    plain_ms = _timeit(lambda: msda.ms_deform_attn_core_backward_reference(
+        value, shapes, loc, aw, g), n=3)
+    nbytes, flops = _msda_bwd_cost(value, shapes, loc)
+    bound_ms, bound_by = _bound(nbytes, flops, F32_FLOPS)
+    atomics = 4 * value.shape[-1] * _msda_samples(shapes, loc)
+    sm.log(f"time msda backward {name} {str(value.dtype)[6:]} "
+           f"Lq={loc.shape[1]}: kernel {ms:.3f} ms (zeroed f32 map, kernel, "
+           f"cast), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+           f"{bound_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP, "
+           f"<= {atomics / 1e9:.3f}e9 float32 atomic adds; CUDA events)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def phase_msda_bwd(sm, msda, captured):
+    """13. the MSDA backward kernel vs its plain version: small levels, then
+    one UPN request's own encoder and decoder inputs (phase 7) with a
+    seeded upstream gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    small = ((6, 8), (3, 4), (2, 2))
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (8, 32):
+            value, loc, aw = _msda_inputs(gen, small, 2, 37, 2, d, 4, dtype,
+                                          -0.3, 1.3)
+            g = torch.randn(2, 37, 2 * d, device="cuda", generator=gen)
+            errs += _msda_bwd_compare(sm, msda, f"small D={d}", value, small,
+                                      loc, aw, g)
+    times = {}
+    for key in ("encoder", "decoder"):
+        value, shapes, loc, aw = (t.clone() if torch.is_tensor(t) else t
+                                  for t in captured[key])
+        g = torch.randn(value.shape[0], loc.shape[1],
+                        value.shape[2] * value.shape[3], device="cuda",
+                        generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            errs += _msda_bwd_compare(sm, msda, f"{key} (request 0's inputs)",
+                                      value.to(dt), shapes, loc, aw, g)
+        times[key] = _msda_bwd_time(sm, msda, f"{key} (request 0's inputs)",
+                                    value, shapes, loc, aw, g)
+    return max(errs), times
+
+
+def _grads(model):
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def _grad_worst(got, ref):
+    """The parameter furthest over its bound GRAD_RTOL x max|ref_n| +
+    GRAD_ATOL: (max_abs_err / bound, name, max_abs_err, bound)."""
+    worst = (-1.0, "", 0.0, 0.0)
+    for n, r in ref.items():
+        err = (got[n] - r).abs().max().item()
+        bound = GRAD_RTOL * r.abs().max().item() + GRAD_ATOL
+        ratio = err / bound if err == err else float("inf")
+        if ratio > worst[0]:
+            worst = (ratio, n, err, bound)
+    return worst
+
+
+def _grad_check(sm, what, got, ref):
+    """Card gradients against CPU ones, each parameter to its own bound."""
+    ratio, name, err, bound = _grad_worst(got, ref)
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    sm.check(finite and ratio <= 1.0,
+             f"{what}: {len(ref)} parameter gradients finite {finite}, each "
+             f"within {GRAD_RTOL:g} x its max|cpu grad| + {GRAD_ATOL:g}; "
+             f"worst {name}: max_abs_err={err:.3e}, bound {bound:.3e} "
+             f"({ratio:.3g} of it)")
+    return err
+
+
+def phase_tiny_upn_grad(sm, upn_mod, msda):
+    """14. tiny UPN f32, shared weights: parameter gradients of a fixed
+    scalar of pred_boxes and pred_logits on the card (both MSDA kernels)
+    and on the CPU (plain versions); then, as a negative control, the card
+    run again with grad_value and then grad_loc zeroed in the MSDA backward
+    must fail the same check."""
+    cpu, gpu, _, _ = _tiny_upn_pair(upn_mod, msda)
+    nq = cpu.model.cfg.num_queries
+    gen = torch.Generator().manual_seed(8)
+    cb, cl = torch.randn(1, nq, 4, generator=gen), torch.randn(
+        1, nq, 1, generator=gen)
+    # an unpadded input: with zero biases (random_init) a zero-padded
+    # region feeds LayerNorms inputs of zero variance, whose backward
+    # multiplies by 1/sqrt(eps) per norm and makes the comparison one of
+    # rounding noise
+    image = torch.randn(1, 256, 320, 3, generator=gen)
+    hw = torch.tensor([[256, 320]])
+
+    def run(w):
+        model = w.model.requires_grad_(True)
+        model.zero_grad(set_to_none=True)
+        x, valid = image.to(w.model.device), hw.to(w.model.device)
+        before = (msda.ms_deform_attn_core.launches,
+                  msda.ms_deform_attn_core_backward.launches)
+        out = model.predict(x, valid)
+        dev = out["pred_boxes"].device
+        loss = ((out["pred_boxes"] * cb.to(dev)).sum()
+                + (out["pred_logits"] * cl.to(dev)).sum())
+        loss.backward()
+        torch.cuda.synchronize()
+        counts = (msda.ms_deform_attn_core.launches - before[0],
+                  msda.ms_deform_attn_core_backward.launches - before[1])
+        return _grads(model), counts
+
+    ref, cpu_counts = run(cpu)
+    got, card_counts = run(gpu)
+    err = _grad_check(sm, "tiny UPN f32 gradients card == cpu", got, ref)
+    sm.check(card_counts == (4, 4) and cpu_counts == (0, 0),
+             f"tiny UPN backward: (msda forward, backward) launches card "
+             f"{card_counts} cpu {cpu_counts}")
+    real = msda.ms_deform_attn_core_backward
+    scale = max(v.abs().max().item() for v in ref.values())
+    for k, what in enumerate(BWD_NAMES[:2]):
+        def planted(*args, k=k):
+            grads = list(real(*args))
+            grads[k] = torch.zeros_like(grads[k])
+            return tuple(grads)
+        planted.launches = 0
+        msda.ms_deform_attn_core_backward = planted
+        try:
+            bad, _ = run(gpu)
+        finally:
+            msda.ms_deform_attn_core_backward = real
+        ratio, name, e, bound = _grad_worst(bad, ref)
+        old = max((bad[n] - r).abs().max().item() for n, r in ref.items())
+        sm.check(ratio > 1.0,
+                 f"tiny UPN negative control, {what} zeroed in the MSDA "
+                 f"backward: rejected, worst {name} max_abs_err={e:.3e} is "
+                 f"{ratio:.3g} x its bound {bound:.3e} (a single bound of "
+                 f"1e-3 x the largest gradient, {1e-3 * max(scale, 1.0):.3e},"
+                 f" would read {old / (1e-3 * max(scale, 1.0)):.3g} of it)")
+    return err
+
+
+def phase_upn_grad(sm, upn_mod, msda):
+    """15. UPN at the released geometry, bf16: forward and backward of a
+    fixed scalar of the outputs on a seeded 1288x966 image, twice (the
+    first warms cuDNN and the allocator)."""
+    upn = upn_mod.UPNWrapper.random_init(seed=0, dtype=torch.bfloat16,
+                                         device="cuda")
+    model = upn.model.requires_grad_(True)
+    padded, hw, _ = upn.prepare(_synthetic_image(400))
+    x, valid = upn.model_input(padded[None], np.array([hw], np.int32))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    nq = model.cfg.num_queries
+    cb = torch.randn(1, nq, 4, device="cuda", generator=gen)
+    cl = torch.randn(1, nq, 1, device="cuda", generator=gen)
+    msda.ms_deform_attn_core.launches = 0
+    msda.ms_deform_attn_core_backward.launches = 0
+    runs = []
+    for it in range(2):
+        model.zero_grad(set_to_none=True)
+        before = (msda.ms_deform_attn_core.launches,
+                  msda.ms_deform_attn_core_backward.launches)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = model.predict(x, valid)
+        loss = ((out["pred_boxes"] * cb).sum()
+                + (out["pred_logits"] * cl).sum())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n = (msda.ms_deform_attn_core.launches - before[0],
+             msda.ms_deform_attn_core_backward.launches - before[1])
+        with_grad = [p.grad for p in model.parameters() if p.grad is not None]
+        finite = all(bool(torch.isfinite(g).all()) for g in with_grad)
+        runs.append({"forward_ms": (t1 - t0) * 1e3,
+                     "backward_ms": (t2 - t1) * 1e3, "peak_gib": peak,
+                     "launches": n})
+        sm.log(f"UPN bf16 forward+backward {it}: forward {(t1 - t0) * 1e3:.1f}"
+               f" ms, backward {(t2 - t1) * 1e3:.1f} ms, peak memory "
+               f"{peak:.2f} GiB, (msda forward, backward) launches {n}, "
+               f"{len(with_grad)} of {sum(1 for _ in model.parameters())} "
+               f"parameters took a gradient, loss {loss.item():.4f}")
+        sm.check(n == (12, 12) and finite and len(with_grad) > 0
+                 and bool(torch.isfinite(loss)),
+                 f"UPN backward {it}: 12 MSDA forward and 12 backward "
+                 f"launches {n}, all gradients finite {finite}")
+    launches = msda.ms_deform_attn_core_backward.launches
+    del upn, model, out, loss, with_grad
+    torch.cuda.empty_cache()
+    return launches, runs
+
+
+def phase_tiny_train(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                     train):
+    """16. FO1Config.tiny() f32 (full vocabulary, so the prompt's ids are
+    labels): loss and gradients of `multimodal_lm_loss` with remat on the
+    card (the flash kernel in the ViT) equal the CPU's; three AdamW steps on
+    the card."""
+    tiny = FO1Config.tiny()
+    cfg = dataclasses.replace(tiny, text=dataclasses.replace(
+        tiny.text, vocab_size=151936))
+    tok = FallbackTokenizer()
+    cpu = FO1Model.random_init(cfg, seed=0, device="cpu", tokenizer=tok)
+    gpu = FO1Model(cfg, device="cuda", tokenizer=tok)
+    gpu.load_state_dict(cpu.state_dict())
+    prep = cpu.prepare(_messages(1, OD_template), max_pixels=256 * 256)
+    batch = train.batch_from_prepared(cfg, prep)
+    kw = dict(num_windows=prep["plan"].num_windows, grid=prep["grid"])
+    losses, grads = {}, {}
+    for name, m in (("cpu", cpu), ("card", gpu)):
+        m.requires_grad_(True)
+        loss = train.multimodal_lm_loss(m, batch, remat=True, **kw)
+        loss.backward()
+        losses[name] = loss.item()
+        grads[name] = _grads(m)
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    sm.check(rel <= 1e-5, f"tiny FO1 f32 training loss card "
+             f"{losses['card']:.6f} == cpu {losses['cpu']:.6f} (rel "
+             f"{rel:.2e} <= 1e-5)")
+    err = _grad_check(sm, "tiny FO1 f32 gradients card == cpu",
+                      grads["card"], grads["cpu"])
+    opt = train.adamw(gpu.parameters())
+    step = train.make_train_step(gpu, opt, remat=True, **kw)
+    steps = [step(batch).item() for _ in range(3)]
+    sm.check(all(np.isfinite(steps)), f"tiny FO1 three AdamW steps on the "
+             f"card: losses {[round(v, 5) for v in steps]}")
+    return err
+
+
+def _path_grad_diff(got, ref, prefix=""):
+    """Relative L2 distance of two gradient sets (ref on the host), over
+    the parameters whose names start with `prefix`."""
+    num = den = 0.0
+    for n, r in ref.items():
+        if n.startswith(prefix):
+            r = r.to(got[n].device).float()
+            num += (got[n].float() - r).pow(2).sum().item()
+            den += r.pow(2).sum().item()
+    return (num / den) ** 0.5
+
+
+def phase_fo1_train(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                    train, fa, msda, n_steps=3):
+    """17. FO1Config() bf16 with remat at the demo geometry (1288x966, the
+    7 demo boxes): the loss and gradients with the ViT's full attention
+    through the flash kernel (the default) against those through its plain
+    version, with the peak memory of each; then AdamW steps on one seeded
+    batch, loss, ms and peak memory per step."""
+    cfg = FO1Config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FO1Model.random_init(cfg, seed=0, dtype=torch.bfloat16,
+                                 device="cuda", tokenizer=FallbackTokenizer())
+    model.requires_grad_(True)
+    prep = model.prepare(_messages(500, OD_template))
+    batch = train.batch_from_prepared(cfg, prep)
+    kw = dict(num_windows=prep["plan"].num_windows, grid=prep["grid"],
+              remat=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    sm.log(f"FO1 training: {n_params / 1e9:.3f}B parameters bf16, prompt "
+           f"{prep['splice'].seq_len} tokens "
+           f"({int((batch['labels'] != -100).sum())} labelled), ViT "
+           f"{batch['patches'].shape[1]} padded patches, set-up "
+           f"{time.perf_counter() - t0:.1f} s")
+    # the loss looks up the ViT's attention in its module at call time; the
+    # plain run puts the kernel's plain version there for one call
+    paths = {}
+    kernel_path = train.flash_attention_differentiable
+    for name, attn in (("plain", fa.flash_attention_reference),
+                       ("kernel", kernel_path)):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = fa.flash_attention.launches
+        t0 = time.perf_counter()
+        train.flash_attention_differentiable = attn
+        try:
+            loss = train.multimodal_lm_loss(model, batch, **kw)
+            loss.backward()
+        finally:
+            train.flash_attention_differentiable = kernel_path
+        torch.cuda.synchronize()
+        paths[name] = {
+            "loss": loss.item(), "ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "flash_launches": fa.flash_attention.launches - n0}
+        sm.log(f"FO1 loss + backward, ViT full attention {name}: "
+               + json.dumps(paths[name]))
+        if name == "plain":
+            plain = {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        del loss
+    got = {n: p.grad for n, p in model.named_parameters()
+           if p.grad is not None}
+    rel_loss = abs(paths["kernel"]["loss"] - paths["plain"]["loss"]) \
+        / abs(paths["plain"]["loss"])
+    rel_all = _path_grad_diff(got, plain)
+    rel_vit = _path_grad_diff(got, plain, "vision_tower.")
+    sm.check(set(got) == set(plain) and max(rel_loss, rel_all, rel_vit)
+             <= PATH_REL_TOL and paths["kernel"]["flash_launches"] == 4
+             and paths["plain"]["flash_launches"] == 0,
+             f"FO1 bf16 training, ViT flash kernel vs plain: loss rel "
+             f"{rel_loss:.2e}, gradients relative L2 {rel_all:.2e} (vision "
+             f"tower {rel_vit:.2e}; bound {PATH_REL_TOL:g}), flash launches "
+             f"{paths['kernel']['flash_launches']} and "
+             f"{paths['plain']['flash_launches']}, peak "
+             f"{paths['kernel']['peak_gib']:.2f} against "
+             f"{paths['plain']['peak_gib']:.2f} GiB")
+    del plain, got
+    opt = train.adamw(model.parameters())
+    step = train.make_train_step(model, opt, **kw)
+    fa.flash_attention.launches = 0
+    msda.ms_deform_attn_core.launches = 0
+    runs = []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = step(batch).item()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.append({"loss": loss, "ms": ms, "peak_gib": peak})
+        sm.log(f"FO1 training step {i}: loss {loss:.5f}, {ms:.1f} ms, peak "
+               f"memory {peak:.2f} GiB")
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in model.parameters() if p.grad is not None)
+    kernels = (fa.flash_attention.launches, msda.ms_deform_attn_core.launches)
+    sm.check(all(np.isfinite(r["loss"]) for r in runs) and finite
+             and kernels == (4 * n_steps, 0),
+             f"FO1 training: {n_steps} AdamW steps with finite losses, last "
+             f"gradients finite {finite}, (flash, msda) launches {kernels} "
+             f"(4 full-attention blocks a step)")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return runs, paths, kernels[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -899,6 +1324,7 @@ def main():
         FallbackTokenizer,
     )
     from vlm_fo1_tpu_torch.task_templates import OD_template
+    from vlm_fo1_tpu_torch.training import train_step as train
     from vlm_fo1_tpu_torch.upn import wrapper as upn_mod
 
     sm = Smoke(_card())
@@ -913,10 +1339,10 @@ def main():
     import PIL
     sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build the four kernels, one nvcc each, started together
+    # phase 1: build the five kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    build_s = cuda_lib.build(["flash_attention", "msda", "int4_matmul",
-                              "int4_mlp"])
+    build_s = cuda_lib.build(["flash_attention", "msda", "msda_bwd",
+                              "int4_matmul", "int4_mlp"])
     sm.log("built in parallel: " + ", ".join(
         f"{n}.cu {s:.2f} s" for n, s in build_s.items())
         + f"; {time.perf_counter() - t0:.2f} s in all")
@@ -934,8 +1360,8 @@ def main():
     fo1, flash_launches, flash_per_request = phase_fo1(
         sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, fa,
         extract_predictions_to_bboxes)
-    upn, msda_launches, msda_per_request, msda_times, msda_real_err = \
-        phase_upn(sm, upn_mod, msda)
+    upn, msda_launches, msda_per_request, msda_times, msda_real_err, \
+        msda_inputs = phase_upn(sm, upn_mod, msda)
     path_launches = phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template,
                                   extract_predictions_to_bboxes)
     del fo1, upn
@@ -952,6 +1378,20 @@ def main():
         quant_runs[mode] = phase_quant_fo1(
             sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, quant,
             fa, i4, i4mlp, extract_predictions_to_bboxes, mode, n_req)
+
+    # phases 13-17: training (the earlier models are freed)
+    bwd_err, bwd_times = phase_msda_bwd(sm, msda, msda_inputs)
+    del msda_inputs
+    torch.cuda.empty_cache()
+    phase_tiny_upn_grad(sm, upn_mod, msda)
+    bwd_launches, upn_grad_runs = phase_upn_grad(sm, upn_mod, msda)
+    phase_tiny_train(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
+                     train)
+    train_runs, train_paths, train_flash = phase_fo1_train(
+        sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, train, fa,
+        msda)
+    sm.log("FO1 training per step: " + json.dumps(train_runs))
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
     sm.check(not bad, f"the port ran without importing jax or vlm_fo1_tpu "
@@ -975,6 +1415,8 @@ def main():
         "prefill": flash_times["prefill"],
         "launches_per_request": flash_per_request,
         "launches_upn_fo1_path": path_launches["flash_attention"],
+        "launches_3b_train_steps": train_flash,
+        "train_loss_backward_vs_plain": train_paths,
     }, {
         "name": "ms_deform_attn_core", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda.cu",
@@ -1005,6 +1447,14 @@ def main():
         **mlp_times["M=1"],
         "shapes": mlp_times,
         "launches_per_request": quant_runs["int4-mlp"][1],
+    }, {
+        "name": "msda_backward", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/msda_bwd.cu",
+        "replaces": "vlm_fo1_tpu/ops/msda_pallas_bwd.py:219",
+        "launches": bwd_launches, "max_abs_err": bwd_err,
+        "shape": "encoder Lq=S=85932 bf16", **bwd_times["encoder"],
+        "decoder": bwd_times["decoder"],
+        "upn_forward_backward": upn_grad_runs,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ torch.profiler: the stage's wall time (ended by a device synchronise), the
 summed time of the kernels it ran, their share of the wall time (the
 device's busy share; one stream, so kernels do not overlap) and the kernels
 that took the most device time. With --device cpu only the wall times mean
-anything.
+anything. --backward profiles, after a warm-up, the differentiable forward
+(`UPN.predict`) and the backward of a fixed scalar of its boxes and logits
+the same way.
 """
 
 import argparse
@@ -54,6 +56,31 @@ def _profile(fn, device, top):
     return out, wall_ms, busy_ms, rows
 
 
+def _profile_backward(model, x, valid, dev, args):
+    """Forward and backward of sum(boxes * cb) + sum(logits * cl), cb and cl
+    seeded, after args.warmup unprofiled rounds."""
+    model.requires_grad_(True)
+    gen = torch.Generator().manual_seed(0)
+    nq = model.cfg.num_queries
+    cb = torch.randn(1, nq, 4, generator=gen).to(dev)
+    cl = torch.randn(1, nq, 1, generator=gen).to(dev)
+
+    def forward():
+        # x was made under inference mode; autograd may save only a copy
+        out = model.predict(x.clone(), valid)
+        return (out["pred_boxes"] * cb).sum() + (out["pred_logits"] * cl).sum()
+
+    for _ in range(args.warmup):
+        model.zero_grad(set_to_none=True)
+        forward().backward()
+    model.zero_grad(set_to_none=True)
+    stages = {}
+    loss, *stages["forward (differentiable)"] = _profile(forward, dev,
+                                                         args.top)
+    _, *stages["backward"] = _profile(loss.backward, dev, args.top)
+    return stages
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--random-init", choices=["tiny", "3b"], default="3b")
@@ -63,6 +90,7 @@ def main(argv=None):
                     help="image path (default: synthetic 1288x966 image)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--backward", action="store_true")
     args = ap.parse_args(argv)
     args.upn_ckpt = None
 
@@ -96,6 +124,8 @@ def main(argv=None):
                                   "fine_grained_prompt"), dev, args.top)
     print(f"[{card}] UPN request at padded {tuple(x.shape[1:3])}, levels "
           f"{shapes}")
+    if args.backward:
+        stages.update(_profile_backward(model, x, valid, dev, args))
     for name, (wall_ms, busy_ms, rows) in stages.items():
         print(f"[{card}] {name}: wall {wall_ms:.1f} ms, kernels "
               f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}% busy)")

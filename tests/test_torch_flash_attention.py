@@ -1,11 +1,14 @@
 """PyTorch port's flash attention vs the JAX Pallas kernel (interpret mode)
-and its jnp reference, on the CPU; the CUDA kernel itself is compared with
-the plain version by the `cuda`-marked test on a card."""
+and its jnp reference, on the CPU, and the gradient of its differentiable
+form vs `jax.vjp` of the JAX reference (the path the JAX package's gradient
+takes); the CUDA kernel itself is compared with the plain version by the
+`cuda`-marked tests on a card."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from vlm_fo1_tpu.ops.flash_attention import (
@@ -112,10 +115,10 @@ def test_other_devices_raise():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
-def test_kernel_matches_plain_on_card(case, dtype):
+def test_kernel_matches_plain_on_card(case, dtype, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     q, k, v, kw = _inputs(5, *case)
     kw = {n: torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) else x
           for n, x in kw.items()}
@@ -128,3 +131,82 @@ def test_kernel_matches_plain_on_card(case, dtype):
     ref = fa.flash_attention_reference(*(x.float() for x in t), **kw)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+# GQA, causal with kv_len, and the ViT's interspersed key mask
+GRAD_CASES = [CASES[3], CASES[5], CASES[6]]
+
+
+def _grad_inputs(seed, case):
+    q, k, v, kw = _inputs(seed, *case)
+    b, h, _, sq, _, d, _ = case
+    g = np.random.default_rng(seed + 100).standard_normal(
+        (b, h, sq, d)).astype(np.float32)
+    return q, k, v, kw, g
+
+
+def _plain_kernel(q, k, v, causal, kv_len, kv_valid, scale):
+    return fa.flash_attention_reference(q, k, v, causal=causal, kv_len=kv_len,
+                                        kv_valid=kv_valid, scale=scale)
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=_case_id)
+def test_differentiable_gradients_match_jax_vjp(case, monkeypatch):
+    """`FlashAttentionFunction` (its kernel launch swapped for the plain
+    version, the only way to run it without a card: the backward's
+    per-kv-head recompute is the code under test) and the CPU entry
+    `flash_attention_differentiable` both give `jax.vjp` of the JAX
+    reference. f32, different summation order: atol/rtol 1e-4."""
+    q, k, v, kw, g = _grad_inputs(7, case)
+    _, vjp = jax.vjp(lambda a, b, c: jax_reference(a, b, c, **_jax_kw(kw)),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tkw = _torch_kw(kw)
+    monkeypatch.setattr(fa, "_kernel", _plain_kernel)
+    for route in ("function", "cpu entry"):
+        leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+        if route == "function":
+            out = fa.FlashAttentionFunction.apply(
+                *leaves, tkw.get("kv_valid"), tkw.get("causal", False),
+                tkw.get("kv_len"), None)
+        else:
+            out = fa.flash_attention_differentiable(*leaves, **tkw)
+        out.backward(torch.from_numpy(g))
+        for name, leaf, w in zip("qkv", leaves, want):
+            np.testing.assert_allclose(leaf.grad.numpy(), w, atol=1e-4,
+                                       rtol=1e-4, err_msg=f"{route} d{name}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GRAD_CASES + [CASES[7]], ids=_case_id)
+def test_differentiable_kernel_path_on_card(case, dtype, monkeypatch):
+    """`flash_attention_differentiable` on the card (one kernel launch, the
+    plain gradient recomputed per kv head) against autograd of the plain
+    version in f32 on the same inputs: f32 with TF32 off 1e-4, bf16 3e-2 x
+    max(1, max|plain|) (bf16 inputs and probabilities)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, kw, g = _grad_inputs(8, case)
+    kw = {n: torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) else x
+          for n, x in kw.items()}
+    dt = getattr(torch, dtype)
+    gc = torch.from_numpy(g).cuda()
+    leaves = [torch.from_numpy(x).cuda().to(dt).requires_grad_(True)
+              for x in (q, k, v)]
+    before = fa.flash_attention.launches
+    out = fa.flash_attention_differentiable(*leaves, **kw)
+    out.backward(gc.to(dt))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    refs = [x.detach().float().requires_grad_(True) for x in leaves]
+    ref = fa.flash_attention_reference(*refs, **kw)
+    ref.backward(gc)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    for got, want in [(out, ref)] + [(a.grad, b.grad)
+                                     for a, b in zip(leaves, refs)]:
+        assert got.dtype == dt
+        bound = tol * max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.float(), want.detach(), atol=bound,
+                                   rtol=0)

@@ -133,9 +133,10 @@ def test_stop_sequence_matches(models):
 
 
 def test_port_and_example_never_import_jax(tmp_path):
-    """Importing every module of the port and running the three port
-    examples on the CPU (the FO1 one also in the int4 mode) loads neither
-    JAX nor the JAX package."""
+    """Importing every module of the port (the training modules named
+    explicitly) and running the port's examples on the CPU (the FO1 one
+    also in the int4 mode, and one training step with a checkpoint) loads
+    neither JAX nor the JAX package."""
     runs = [
         ("inference_torch.py", ["--max-new-tokens", "2", "--output",
                                 str(tmp_path / "fo1.jpg")]),
@@ -144,12 +145,15 @@ def test_port_and_example_never_import_jax(tmp_path):
         ("inference_with_upn_torch.py", ["--max-new-tokens", "2",
                                          "--output",
                                          str(tmp_path / "upn_fo1.jpg")]),
+        ("train_torch.py", ["--steps", "1", "--ckpt-dir",
+                            str(tmp_path / "ckpt")]),
     ]
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import vlm_fo1_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from vlm_fo1_tpu_torch.training import checkpointing, train_step\n"
         f"for script, extra in {runs!r}:\n"
         "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
         " + extra\n"
@@ -165,3 +169,4 @@ def test_port_and_example_never_import_jax(tmp_path):
     assert "NO_JAX" in out.stdout
     assert out.stdout.count("parsed boxes") == 3
     assert "proposals above" in out.stdout
+    assert "step_1" in out.stdout and (tmp_path / "ckpt" / "step_1").is_dir()

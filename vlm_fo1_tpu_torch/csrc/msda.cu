@@ -91,8 +91,11 @@ msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
         const float sx = __shfl_sync(FULL, lx, j, TPG);
         const float sy = __shfl_sync(FULL, ly, j, TPG);
         const float sa = __shfl_sync(FULL, a, j, TPG);
-        const float x = sx * wf - 0.5f;
-        const float y = sy * hf - 0.5f;
+        // rounded as the plain version's two elementwise ops, never fused
+        // into one multiply-add: the same cell for a location on an edge
+        // (msda_bwd.cu, whose location gradient jumps there, does the same)
+        const float x = __fsub_rn(__fmul_rn(sx, wf), 0.5f);
+        const float y = __fsub_rn(__fmul_rn(sy, hf), 0.5f);
         // all four corners outside the map (also catches NaN)
         if (!(x > -1.f && x < wf && y > -1.f && y < hf)) continue;
         const float x0f = floorf(x), y0f = floorf(y);

@@ -7,7 +7,8 @@ multi-token call is a prefill from cache slot 0: its attention runs through
 `attention` (the flash kernel by default) over the prompt's own k/v with
 `causal=True, kv_len=S`, which equals the JAX prefill mask on the real
 rows. A single-token call is a decode step: plain PyTorch attention over the
-cache up to the written slot.
+cache up to the written slot. A call with no cache is the training forward:
+the whole sequence through `attention` (`causal_attention` there).
 
 Parameters use the checkpoint's names: `embed_tokens.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj`, `layers.{i}.mlp.*`, `norm.weight`,
@@ -22,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vlm_fo1_tpu_torch.config import TextConfig
 from vlm_fo1_tpu_torch import nn as tnn
@@ -64,6 +66,30 @@ def init_kv_cache(cfg: TextConfig, batch, max_len, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def causal_attention(q, k, v, *, causal=True, kv_len=None):
+    """Plain attention in the flash kernel's signature (q [B, H, S, hd],
+    k/v [B, Hkv, S, hd], GQA), the general path of the JAX `_attention`:
+    f32 logits, logits stored in q's dtype, the mask, an f32 softmax and
+    the probabilities cast back. Differentiable: the training loss passes
+    it as the trunk's `attention` (the JAX trunk never calls the flash
+    kernel)."""
+    b, h, s, hd = q.shape
+    nkv, sk = k.shape[1], k.shape[2]
+    qg = q.reshape(b, nkv, h // nkv, s, hd)
+    logits = torch.einsum("bngsh,bnch->bngsc", qg.float(), k.float())
+    logits = (logits * (1.0 / math.sqrt(hd))).to(q.dtype).float()
+    kpos = torch.arange(sk, device=q.device)
+    allowed = torch.ones(s, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(s, device=q.device)
+        allowed &= kpos[None, :] <= qpos[:, None] + (sk - s)
+    if kv_len is not None:
+        allowed &= (kpos < kv_len)[None, :]
+    logits = logits.masked_fill(~allowed, tnn.MASK_FILL)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bngsc,bnch->bngsh", probs, v).reshape(b, h, s, hd)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: TextConfig):
         super().__init__()
@@ -77,15 +103,16 @@ class Attention(nn.Module):
 
     def forward(self, x, cos, sin, kc, vc, offset, attention):
         """x [B, S, D]; kc/vc this layer's cache [B, C, Hkv, hd], written in
-        place at [offset, offset + S)."""
+        place at [offset, offset + S), or None for a cache-free call."""
         b, s, _ = x.shape
         nh, nkv, hd = self.nh, self.nkv, self.hd
         q = _apply_rope(self.q_proj(x).reshape(b, s, nh, hd), cos, sin)
         k = _apply_rope(self.k_proj(x).reshape(b, s, nkv, hd), cos, sin)
         v = self.v_proj(x).reshape(b, s, nkv, hd)
-        kc[:, offset:offset + s] = k.to(kc.dtype)
-        vc[:, offset:offset + s] = v.to(vc.dtype)
-        if s > 1:
+        if kc is not None:
+            kc[:, offset:offset + s] = k.to(kc.dtype)
+            vc[:, offset:offset + s] = v.to(vc.dtype)
+        if s > 1 or kc is None:
             if offset != 0:
                 raise ValueError("multi-token calls are prefills from slot 0")
             out = attention(q.transpose(1, 2).contiguous(),
@@ -146,6 +173,11 @@ class DecoderLayer(nn.Module):
         self.self_attn = Attention(cfg)
         self.mlp = MLP(cfg)
 
+    def forward(self, x, cos, sin, kc, vc, offset, attention):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin, kc, vc,
+                               offset, attention)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
 
 class TextModel(nn.Module):
     def __init__(self, cfg: TextConfig):
@@ -159,18 +191,26 @@ class TextModel(nn.Module):
             self.lm_head = tnn.Linear(cfg.hidden_size, cfg.vocab_size,
                                       bias=False)
 
-    def forward(self, hidden, cos, sin, kv_cache, offset,
-                attention=flash_attention):
+    def forward(self, hidden, cos, sin, kv_cache=None, offset=0,
+                attention=flash_attention, remat=False):
         """hidden [B, S, D] -> final-normed hidden [B, S, D]; fills
-        kv_cache slots [offset, offset + S) of every layer."""
+        kv_cache slots [offset, offset + S) of every layer. With no cache
+        (the JAX `text_forward` with kv_cache=None) the whole sequence goes
+        through `attention` under the causal mask: training passes the
+        differentiable `causal_attention`, and remat=True recomputes each
+        layer in the backward pass instead of storing its activations (the
+        JAX `remat`, `jax.checkpoint` per scanned layer)."""
         x = hidden
         for i, layer in enumerate(self.layers):
-            x = x + layer.self_attn(layer.input_layernorm(x), cos, sin,
-                                    kv_cache["k"][i], kv_cache["v"][i],
-                                    offset, attention)
             if isinstance(layer.mlp, Int4MLP) and self.cfg.hidden_act != "silu":
                 raise ValueError("the fused int4 MLP computes SwiGLU only")
-            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            kc, vc = ((None, None) if kv_cache is None
+                      else (kv_cache["k"][i], kv_cache["v"][i]))
+            if remat:
+                x = checkpoint(layer, x, cos, sin, kc, vc, offset, attention,
+                               use_reentrant=False)
+            else:
+                x = layer(x, cos, sin, kc, vc, offset, attention)
         return self.norm(x)
 
     def embed(self, ids):

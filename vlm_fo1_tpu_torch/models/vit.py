@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vlm_fo1_tpu_torch.config import ViTConfig
 from vlm_fo1_tpu_torch import nn as tnn
@@ -94,6 +95,17 @@ class VisionBlock(nn.Module):
         self.attn = VisionAttention(d)
         self.mlp = VisionMLP(d, cfg.intermediate_size, cfg.hidden_act)
 
+    def window_block(self, x, cos_w, sin_w, win_mask, num_heads,
+                     num_windows):
+        x = x + self.attn.window(self.norm1(x), cos_w, sin_w, win_mask,
+                                 num_heads, num_windows)
+        return x + self.mlp(self.norm2(x))
+
+    def full_block(self, x, cos, sin, valid, num_heads, attention):
+        x = x + self.attn.full(self.norm1(x), cos, sin, valid, num_heads,
+                               attention)
+        return x + self.mlp(self.norm2(x))
+
 
 class PatchMerger(nn.Module):
     def __init__(self, cfg: ViTConfig):
@@ -122,9 +134,15 @@ class VisionTransformer(nn.Module):
         self.merger = PatchMerger(cfg)
 
     def forward(self, patches, rot_cos, rot_sin, valid, *, num_windows,
-                inv_unit_idx, attention=flash_attention):
+                inv_unit_idx, attention=flash_attention, remat=False):
         """patches [B, P, patch_dim] normalized, padded-window layout;
         rot_cos/rot_sin [P, hd] fp32; valid [P] bool; inv_unit_idx [U].
+        `attention` serves the full-attention blocks: the forward-only flash
+        kernel by default, `flash_attention_differentiable` for training.
+        remat=True
+        recomputes each window block in the backward pass instead of
+        storing its activations (the JAX `remat`); full blocks stay stored,
+        their outputs are the captures anyway.
 
         Returns (tokens [B, U, out_hidden] in original order, captures: list
         of [B, P, D] hidden states after each full-attention block)."""
@@ -140,16 +158,17 @@ class VisionTransformer(nn.Module):
         full = set(cfg.fullatt_block_indexes)
         captures = []
         for i, blk in enumerate(self.blocks):
-            h = blk.norm1(x)
             if i in full:
-                x = x + blk.attn.full(h, rot_cos, rot_sin, valid,
-                                      cfg.num_heads, attention)
-            else:
-                x = x + blk.attn.window(h, cos_w, sin_w, win_mask,
-                                        cfg.num_heads, num_windows)
-            x = x + blk.mlp(blk.norm2(x))
-            if i in full:
+                x = blk.full_block(x, rot_cos, rot_sin, valid, cfg.num_heads,
+                                   attention)
                 captures.append(x)
+            elif remat:
+                x = checkpoint(blk.window_block, x, cos_w, sin_w, win_mask,
+                               cfg.num_heads, num_windows,
+                               use_reentrant=False)
+            else:
+                x = blk.window_block(x, cos_w, sin_w, win_mask,
+                                     cfg.num_heads, num_windows)
         return self.merger(x, inv_unit_idx), captures
 
 

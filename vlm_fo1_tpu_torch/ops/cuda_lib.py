@@ -14,6 +14,8 @@ import os
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 
@@ -79,6 +81,21 @@ def build(names) -> dict[str, float]:
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return seconds
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A forward-only kernel's wrapper calls this first: with grad mode on
+    and any input requiring a gradient it raises, rather than return an
+    output without a `grad_fn` that would train on a silently missing
+    gradient. Checked before the device dispatch, so the plain version on
+    the CPU refuses too."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: its kernel has no backward. Call it "
+            "under torch.no_grad() or torch.inference_mode(), or take a "
+            "differentiable path (for attention, "
+            "flash_attention_differentiable)")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -7,7 +7,9 @@ bound, an arbitrary per-key `kv_valid` [Sk] bool mask and `scale`.
 
 `flash_attention` launches the hand-written CUDA kernel
 (`csrc/flash_attention.cu`) for CUDA tensors and takes the plain PyTorch
-version (`flash_attention_reference`) only for CPU tensors. The kernel is
+version (`flash_attention_reference`) only for CPU tensors. It is forward
+only; `flash_attention_differentiable` is the same kernel with the plain
+version's gradient, which the training loss chooses for the ViT. The kernel is
 built with nvcc into `build/` at the repository root on first use and loaded
 with ctypes (`cuda_lib`); a failed build or launch raises.
 """
@@ -72,11 +74,19 @@ def flash_attention(q, k, v, *, causal=False, kv_len=None, kv_valid=None,
     """Online-softmax attention -> [B, H, Sq, D] in q's dtype.
 
     A query row whose keys are all masked comes out finite (its value is
-    unspecified). CPU tensors take `flash_attention_reference`."""
+    unspecified). CPU tensors take `flash_attention_reference`. Forward
+    only: with grad mode on, inputs that require a gradient raise (see
+    `flash_attention_differentiable`)."""
+    cuda_lib.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          kv_len=kv_len, kv_valid=kv_valid,
                                          scale=scale)
+    return _kernel(q, k, v, causal, kv_len, kv_valid, scale)
+
+
+def _kernel(q, k, v, causal, kv_len, kv_valid, scale):
+    """Launch `csrc/flash_attention.cu` on CUDA inputs (checked here)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, h, sq, d = q.shape
@@ -118,3 +128,51 @@ def flash_attention(q, k, v, *, causal=False, kv_len=None, kv_valid=None,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The flash kernel as the forward, the plain version's gradient as the
+    backward: it recomputes `flash_attention_reference` one kv head (and
+    its query heads) at a time and differentiates that. This is the JAX
+    package's design (its Pallas kernel has no backward; the gradient runs
+    through the reference path). Saves only q, k, v and the mask, so a
+    training forward stores no [Sq, Sk] logits; the backward holds one kv
+    head's at a time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal, kv_len, scale):
+        ctx.save_for_backward(q, k, v, kv_valid)
+        ctx.opts = dict(causal=causal, kv_len=kv_len, scale=scale)
+        return _kernel(q, k, v, causal, kv_len, kv_valid, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v, kv_valid = ctx.saved_tensors
+        g = q.shape[1] // k.shape[1]
+        grads = ([], [], [])
+        with torch.enable_grad():
+            for j in range(k.shape[1]):
+                ins = [t.detach().requires_grad_(True) for t in
+                       (q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1])]
+                out = flash_attention_reference(*ins, kv_valid=kv_valid,
+                                                **ctx.opts)
+                for acc, d in zip(grads, torch.autograd.grad(
+                        out, ins, grad_out[:, j * g:(j + 1) * g])):
+                    acc.append(d)
+        return (*(torch.cat(acc, dim=1) for acc in grads),
+                None, None, None, None)
+
+
+def flash_attention_differentiable(q, k, v, *, causal=False, kv_len=None,
+                                   kv_valid=None, scale=None):
+    """`flash_attention` with a gradient, for training: CUDA tensors go
+    through `FlashAttentionFunction` (the kernel forward, counted in
+    `flash_attention.launches`); CPU tensors take
+    `flash_attention_reference`, which autograd differentiates."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal,
+                                         kv_len=kv_len, kv_valid=kv_valid,
+                                         scale=scale)
+    return FlashAttentionFunction.apply(q, k, v, kv_valid, causal, kv_len,
+                                        scale)

@@ -91,7 +91,9 @@ def _load():
 
 def int4_matmul(x, packed, scale):
     """x [M, K] @ packed int4 [K/2, N] * scale [N] -> [M, N] in x's dtype.
-    CPU tensors take `int4_matmul_reference`."""
+    CPU tensors take `int4_matmul_reference`. Forward only: with grad mode
+    on, inputs that require a gradient raise."""
+    cuda_lib.refuse_grad("int4_matmul", x, packed, scale)
     if x.device.type == "cpu":
         return int4_matmul_reference(x, packed, scale)
     check_cuda_inputs("int4_matmul", x, (packed, scale))

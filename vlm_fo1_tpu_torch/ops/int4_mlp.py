@@ -64,7 +64,9 @@ def _load():
 
 def int4_mlp(x, node):
     """x [M, D] through the fused int4 SwiGLU -> [M, D] in x's dtype. CPU
-    tensors take `int4_mlp_reference`."""
+    tensors take `int4_mlp_reference`. Forward only: with grad mode on,
+    inputs that require a gradient raise."""
+    cuda_lib.refuse_grad("int4_mlp", x, *(node[k] for k in KEYS))
     if x.device.type == "cpu":
         return int4_mlp_reference(x, node)
     tensors = [node[k] for k in KEYS]

@@ -6,10 +6,15 @@
 [B, Lq, M, L, P]; it returns [B, Lq, M*D] in float32. Sampling is
 grid_sample(align_corners=False) with zeros padding.
 
-For CUDA tensors it launches the hand-written kernel (`csrc/msda.cu`); CPU
-tensors take the plain version `ms_deform_attn_core_reference`, the
-row-gather formulation of the JAX oracle. The kernel is built with nvcc into
-`build/` at first use (`cuda_lib`); a failed build or launch raises.
+For CUDA tensors it runs `MSDeformAttnFunction`: the hand-written forward
+kernel (`csrc/msda.cu`) with the hand-written backward kernel
+(`csrc/msda_bwd.cu`, the counterpart of the Pallas `msda_backward_pallas`)
+as its gradient. CPU tensors take the plain version
+`ms_deform_attn_core_reference`, the row-gather formulation of the JAX
+oracle, which autograd differentiates. That gradient as a function,
+`ms_deform_attn_core_backward_reference`, is the plain version of the
+backward kernel. The kernels are built with nvcc into `build/` at first use
+(`cuda_lib`); a failed build or launch raises.
 
 `MSDeformAttn` is the full layer (the JAX `msda_layer`), with the reference
 checkpoint's parameter names and its head-major `sampling_offsets` output
@@ -29,6 +34,7 @@ from vlm_fo1_tpu_torch.ops import cuda_lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
+_lib_bwd = None
 
 
 def _check(value, spatial_shapes, sampling_locations, attention_weights):
@@ -89,6 +95,25 @@ def ms_deform_attn_core_reference(value, spatial_shapes, sampling_locations,
     return out.reshape(b, lq, m * d)
 
 
+def ms_deform_attn_core_backward_reference(value, spatial_shapes,
+                                           sampling_locations,
+                                           attention_weights, grad_output):
+    """Plain PyTorch version of the backward: autograd of the plain core in
+    float32. grad_output [B, Lq, M*D] -> (grad_value in value's dtype,
+    grad_loc float32, grad_aw float32), what `jax.vjp` of the JAX
+    `ms_deform_attn_core` gives."""
+    # float32 copies as fresh leaves, also for inputs made under inference
+    # mode and for a caller inside it
+    with torch.inference_mode(False), torch.enable_grad():
+        v, loc, aw = (
+            t.detach().to(torch.float32, copy=True).requires_grad_(True)
+            for t in (value, sampling_locations, attention_weights))
+        out = ms_deform_attn_core_reference(v, spatial_shapes, loc, aw)
+        gv, gl, ga = torch.autograd.grad(out, (v, loc, aw),
+                                         grad_output.float())
+    return gv.to(value.dtype), gl, ga
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -101,30 +126,42 @@ def _load():
     return _lib
 
 
-def ms_deform_attn_core(value, spatial_shapes, sampling_locations,
-                        attention_weights):
-    """-> [B, Lq, M*D] float32. spatial_shapes: ((H0, W0), ...) as ints.
-    value float32 or bfloat16, locations and weights float32; any other
-    dtype or shape raises. CPU tensors take the plain version."""
-    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    _check(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type == "cpu":
-        return ms_deform_attn_core_reference(
-            value, spatial_shapes, sampling_locations, attention_weights)
+def _load_bwd():
+    global _lib_bwd
+    if _lib_bwd is None:
+        lib = cuda_lib.load("msda_bwd")
+        fn = lib.fo1_msda_bwd
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+        fn.restype = ci
+        _lib_bwd = lib
+    return _lib_bwd
+
+
+def _check_cuda(name, value, *others):
     if value.device.type != "cuda":
-        raise ValueError(f"ms_deform_attn_core: unsupported device "
-                         f"{value.device}")
-    if not (sampling_locations.device == value.device
-            and attention_weights.device == value.device):
-        raise ValueError("ms_deform_attn_core: inputs on different devices")
-    if not (value.is_contiguous() and sampling_locations.is_contiguous()
-            and attention_weights.is_contiguous()):
-        raise ValueError("ms_deform_attn_core: inputs must be contiguous")
+        raise ValueError(f"{name}: unsupported device {value.device}")
+    if any(t.device != value.device for t in others):
+        raise ValueError(f"{name}: inputs on different devices")
+    if not all(t.is_contiguous() for t in (value, *others)):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def _levels(spatial_shapes):
+    """Host array [L][3] of (H, W, first row in S) for the kernels."""
+    starts = np.cumsum([0] + [h * w for h, w in spatial_shapes])[:-1]
+    return np.array([(h, w, st) for (h, w), st in
+                     zip(spatial_shapes, starts)], np.int32).reshape(-1)
+
+
+def _forward_kernel(value, spatial_shapes, sampling_locations,
+                    attention_weights):
+    """Launch `csrc/msda.cu` on checked CUDA inputs -> [B, Lq, M*D] f32."""
+    _check_cuda("ms_deform_attn_core", value, sampling_locations,
+                attention_weights)
     b, s, m, d = value.shape
     _, lq, _, nl, npts, _ = sampling_locations.shape
-    starts = np.cumsum([0] + [h * w for h, w in spatial_shapes])[:-1]
-    levels = np.array([(h, w, st) for (h, w), st in
-                       zip(spatial_shapes, starts)], np.int32).reshape(-1)
+    levels = _levels(spatial_shapes)
     lib = _load()
     out = torch.empty(b, lq, m * d, dtype=torch.float32, device=value.device)
     with torch.cuda.device(value.device):
@@ -138,6 +175,94 @@ def ms_deform_attn_core(value, spatial_shapes, sampling_locations,
         raise RuntimeError(f"msda kernel launch failed: CUDA error {err}")
     ms_deform_attn_core.launches += 1
     return out
+
+
+def ms_deform_attn_core_backward(value, spatial_shapes, sampling_locations,
+                                 attention_weights, grad_output):
+    """The MSDA backward: grad_output [B, Lq, M*D] float32 -> (grad_value
+    [B, S, M, D] in value's dtype, grad_loc [B, Lq, M, L, P, 2] float32,
+    grad_aw [B, Lq, M, L, P] float32). CUDA tensors launch the hand-written
+    kernel (`csrc/msda_bwd.cu`), which sums grad_value with float32 atomics
+    into a zeroed float32 map and casts it to value's dtype after; CPU
+    tensors take `ms_deform_attn_core_backward_reference`."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, m, d = value.shape
+    lq = sampling_locations.shape[1]
+    if (grad_output.dtype != torch.float32
+            or grad_output.shape != (b, lq, m * d)):
+        raise ValueError(f"ms_deform_attn_core_backward: grad_output "
+                         f"{tuple(grad_output.shape)} {grad_output.dtype}; "
+                         f"need ({b}, {lq}, {m * d}) float32")
+    if value.device.type == "cpu":
+        return ms_deform_attn_core_backward_reference(
+            value, spatial_shapes, sampling_locations, attention_weights,
+            grad_output)
+    _check_cuda("ms_deform_attn_core_backward", value, sampling_locations,
+                attention_weights, grad_output)
+    _, _, _, nl, npts, _ = sampling_locations.shape
+    levels = _levels(spatial_shapes)
+    lib = _load_bwd()
+    dev = value.device
+    grad_value = torch.zeros(value.shape, dtype=torch.float32, device=dev)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_aw = torch.empty_like(attention_weights)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fo1_msda_bwd(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), grad_output.data_ptr(),
+            grad_value.data_ptr(), grad_loc.data_ptr(), grad_aw.data_ptr(),
+            levels.ctypes.data, b, s, m, d, lq, nl, npts,
+            _DTYPES[value.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"msda backward kernel launch failed: CUDA error "
+                           f"{err}")
+    ms_deform_attn_core_backward.launches += 1
+    return grad_value.to(value.dtype), grad_loc, grad_aw
+
+
+ms_deform_attn_core_backward.launches = 0
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """The CUDA forward kernel with the CUDA backward kernel as its
+    gradient (the JAX `custom_vjp` of `ms_deform_attn_core_flat`). It saves
+    value, locations and weights, as the JAX residuals do."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations,
+                attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return _forward_kernel(value, spatial_shapes, sampling_locations,
+                               attention_weights)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_output):
+        value, loc, aw = ctx.saved_tensors
+        gv, gl, ga = ms_deform_attn_core_backward(
+            value, ctx.spatial_shapes, loc, aw, grad_output.contiguous())
+        need = ctx.needs_input_grad
+        return (gv if need[0] else None, None, gl if need[2] else None,
+                ga if need[3] else None)
+
+
+def ms_deform_attn_core(value, spatial_shapes, sampling_locations,
+                        attention_weights):
+    """-> [B, Lq, M*D] float32. spatial_shapes: ((H0, W0), ...) as ints.
+    value float32 or bfloat16, locations and weights float32; any other
+    dtype or shape raises. CUDA tensors go through `MSDeformAttnFunction`
+    (forward and backward kernels); CPU tensors take the plain version,
+    which autograd differentiates."""
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    if value.device.type == "cpu":
+        return ms_deform_attn_core_reference(
+            value, spatial_shapes, sampling_locations, attention_weights)
+    return MSDeformAttnFunction.apply(value, spatial_shapes,
+                                      sampling_locations, attention_weights)
 
 
 ms_deform_attn_core.launches = 0

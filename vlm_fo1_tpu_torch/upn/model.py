@@ -381,6 +381,20 @@ class UPN(nn.Module):
         pred_logits = (hs @ prompt_emb).float()[..., None]
         return pred_boxes, pred_logits, topk_idx
 
+    def predict(self, image, valid_hw, prompt="fine_grained_prompt"):
+        """The differentiable entry, counterpart of the JAX `upn_forward`:
+        the same stages as `forward` with autograd on whatever parameters
+        the caller set to require gradients (the constructor freezes all).
+        image [B, H, W, 3] padded, valid_hw [B, 2] int. Returns
+        dict(pred_boxes [B, nq, 4] normalised cxcywh float32, pred_logits
+        [B, nq, 1] float32). On the card its deformable attention runs the
+        MSDA forward kernel and, in the backward pass, the MSDA backward
+        kernel (`ops.msda.MSDeformAttnFunction`)."""
+        src, pos, shapes, vr, key_pad = self.features(image, valid_hw)
+        memory = self.encoder(src, pos, shapes, vr, key_pad)
+        boxes, logits, _ = self.decoder(memory, shapes, vr, key_pad, prompt)
+        return {"pred_boxes": boxes, "pred_logits": logits}
+
     @torch.inference_mode()
     def forward(self, image, valid_hw, prompt="fine_grained_prompt",
                 stage_ms: dict | None = None):

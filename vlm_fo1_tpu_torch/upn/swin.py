@@ -187,7 +187,10 @@ class SwinTransformer(nn.Module):
     def _table(self, key, build, device):
         key = (key, device)
         if key not in self._tables:
-            self._tables[key] = torch.from_numpy(build()).to(device)
+            # a plain tensor even when built under inference mode, so that
+            # a later differentiable call may save it for its backward
+            with torch.inference_mode(False):
+                self._tables[key] = torch.from_numpy(build()).to(device)
         return self._tables[key]
 
     def forward(self, images):
