@@ -11,8 +11,14 @@ Phases (any failure exits non-zero and prints no result line):
      attention S=6912 D=80 with the real 68x92 window-plan mask; trunk
      prefill H=16/Hkv=2 D=128 causal S=1700 kv_len<S), f32 with TF32 off
      (max abs err <= 1e-4) and bf16 against the plain version in f32 on the
-     same bf16 inputs (<= 2e-2); kernel, plain and
-     scaled_dot_product_attention times at the main-path shapes;
+     same bf16 inputs (<= 2e-2); at the main-path shapes also the worst
+     relative L2 error of one output row (one query of one head; <= 1e-4
+     f32, <= 2e-2 bf16), and two planted faults in bf16 (the last key tile
+     with an allowed key skipped, the key mask ignored) that must exceed
+     that row bound; at the main-path shapes in bf16 the kernel
+     and scaled_dot_product_attention as device time from CUDA graph
+     replays, the kernel's eager per-call time, the plain version's time,
+     the achieved TFLOP/s and the share of the bound;
   3. multi-scale deformable attention vs its plain version the same way:
      D in {8, 32} at small non-square levels with out-of-range locations,
      then the UPN encoder (Lq = S = 85,932) and decoder (Lq = 900) shapes
@@ -225,6 +231,29 @@ def _messages(seed, template, boxes=DEMO_BOXES, image=None):
 
 # ------------------------------------------------------------ flash kernel
 
+def _row_rel(out, ref):
+    """Worst relative L2 error of one output row (one query of one head).
+    At the ViT shape a row averages ~6256 keys and its values are ~0.02, so
+    an absolute 2e-2 would pass a kernel that drops a whole key tile."""
+    diff = (out.float() - ref).norm(dim=-1)
+    return (diff / ref.norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def _planted_faults(kw, sk, tile=64):
+    """Masks under which the correct kernel returns what a faulty one would:
+    the last 64-key tile that holds an allowed key skipped, and the key
+    mask (kv_valid or kv_len) ignored."""
+    kpos = torch.arange(sk, device="cuda")
+    keep = kpos < kw.get("kv_len", sk)
+    if "kv_valid" in kw:
+        keep &= kw["kv_valid"]
+    last = int(kpos[keep].max().item())
+    skip = dict(kw, kv_valid=keep & (kpos < last // tile * tile))
+    skip.pop("kv_len", None)
+    ignore = {n: x for n, x in kw.items() if n not in ("kv_valid", "kv_len")}
+    return [("last key tile skipped", skip), ("key mask ignored", ignore)]
+
+
 def phase_flash(sm, fa, build_vit_plan, vit_cfg):
     import torch.nn.functional as F
 
@@ -246,7 +275,7 @@ def phase_flash(sm, fa, build_vit_plan, vit_cfg):
         sm.check(bool(torch.isfinite(out).all()) and err <= tol,
                  f"flash {name} {str(dtype)[6:]} shape={shape} "
                  f"max_abs_err={err:.3e} (tol {tol:g})")
-        return err
+        return err, out, (q, k, v, ref)
 
     rand_valid = torch.rand(130, device="cuda", generator=gen) > 0.3
     small = [
@@ -257,10 +286,11 @@ def phase_flash(sm, fa, build_vit_plan, vit_cfg):
         ("gqa_causal_kv_len", (1, 4, 2, 100, 100),
          {"causal": True, "kv_len": 90}),
     ]
+    errs = []
     for dtype in (torch.float32, torch.bfloat16):
         for d in (12, 16, 80, 128):
             for name, shape, kw in small:
-                compare(name, shape + (d,), kw, dtype)
+                errs.append(compare(name, shape + (d,), kw, dtype)[0])
 
     plan = build_vit_plan((1, 68, 92), vit_cfg)
     vit_valid = torch.from_numpy(plan.valid).cuda()
@@ -269,12 +299,30 @@ def phase_flash(sm, fa, build_vit_plan, vit_cfg):
              {"kv_valid": vit_valid}),
             ("prefill", (1, 16, 2, 1700, 1700, 128),
              {"causal": True, "kv_len": 1650})]
-    errs, times = [], {}
+    times = {}
     for name, shape, kw in main:
-        for dtype in (torch.float32, torch.bfloat16):
-            errs.append(compare(name, shape, kw, dtype))
         b, h, hkv, sq, sk, d = shape
-        q, k, v = inputs(*shape, torch.bfloat16)
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            err, out, (q, k, v, ref) = compare(name, shape, kw, dtype)
+            errs.append(err)
+            rel = _row_rel(out, ref)
+            sm.check(rel <= tol, f"flash {name} {str(dtype)[6:]} worst row "
+                     f"relative L2 {rel:.3e} (tol {tol:g})")
+        # q, k, v and ref are the bf16 case's: a planted fault must fail the
+        # row bound that the kernel passes
+        faults = {}
+        for fault, fkw in _planted_faults(kw, sk):
+            fout = fa.flash_attention(q, k, v, **fkw)
+            faults[fault] = {"row_rel": _row_rel(fout, ref),
+                             "max_abs_err": (fout.float() - ref).abs().max()
+                             .item()}
+            sm.check(faults[fault]["row_rel"] > BF16_TOL,
+                     f"flash {name} bf16 with the {fault}: worst row "
+                     f"relative L2 {faults[fault]['row_rel']:.3e}, "
+                     f"max_abs_err {faults[fault]['max_abs_err']:.3e} (must "
+                     f"exceed the row bound {BF16_TOL:g})")
+        del out, ref, fout
         # the same function as one PyTorch call (a yardstick only)
         kpos = torch.arange(sk, device="cuda")
         allowed = torch.ones(sq, sk, dtype=torch.bool, device="cuda")
@@ -285,25 +333,37 @@ def phase_flash(sm, fa, build_vit_plan, vit_cfg):
             allowed &= (kpos < kw["kv_len"])[None, :]
         if "kv_valid" in kw:
             allowed &= kw["kv_valid"][None, :]
-        plain_ms = _timeit(lambda: fa.flash_attention_reference(q, k, v, **kw))
-        ms = _timeit(lambda: fa.flash_attention(q, k, v, **kw))
-        lib_ms = _timeit(lambda: F.scaled_dot_product_attention(
+        kernel = (lambda: fa.flash_attention(q, k, v, **kw))
+        sdpa = (lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=allowed, enable_gqa=hkv != h))
+        # device time from CUDA graph replays (no host time between calls),
+        # the kernel's eager per-call time beside it
+        ms = _graph_ms(kernel, [()])
+        lib_ms = _graph_ms(sdpa, [()])
+        eager_ms = _timeit(kernel)
+        plain_ms = _timeit(lambda: fa.flash_attention_reference(q, k, v, **kw))
         # the work this mask needs: rows of pad queries (kv_valid) are
         # unspecified, so only valid query rows count
         rows = allowed & kw["kv_valid"][:, None] if "kv_valid" in kw \
             else allowed
-        pairs = int(rows.sum().item())
+        flops = 4 * b * h * d * int(rows.sum().item())
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        bound_ms, bound_by = _bound(nbytes, 4 * b * h * d * pairs,
-                                    BF16_FLOPS)
-        times[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
-        sm.log(f"time flash {name} bf16 shape={shape}: kernel {ms:.3f} ms, "
-               f"plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-               f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-               f"({4 * b * h * d * pairs / 1e9:.1f} GFLOP, "
-               f"{nbytes / 1e6:.1f} MB; CUDA events, mean of 5)")
+        bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+        times[name] = {"shape": f"{name} B={b} H={h} Hkv={hkv} Sq={sq} "
+                                f"Sk={sk} D={d} bf16",
+                       "max_abs_err": err, "row_rel": rel, "faults": faults,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "eager_ms": eager_ms,
+                       "tflops": flops / ms / 1e9,
+                       "bound_share": bound_ms / ms}
+        sm.log(f"time flash {name} bf16 shape={shape}: kernel {ms:.4f} ms "
+               f"(eager calls {eager_ms:.4f} ms), scaled_dot_product_attention"
+               f" {lib_ms:.4f} ms, plain {plain_ms:.3f} ms (eager), bound "
+               f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+               f"{nbytes / 1e6:.1f} MB); kernel {flops / ms / 1e9:.1f} "
+               f"TFLOP/s, {100 * bound_ms / ms:.1f}% of the bound; CUDA "
+               f"events over CUDA graph replays")
     return max(errs), times
 
 
@@ -1412,6 +1472,8 @@ def main():
         "ms": vit["ms"], "plain_ms": vit["plain_ms"],
         "bound_ms": vit["bound_ms"], "bound_by": vit["bound_by"],
         "library_ms": vit["library_ms"],
+        **{n: vit[n] for n in ("shape", "row_rel", "faults", "eager_ms",
+                               "tflops", "bound_share")},
         "prefill": flash_times["prefill"],
         "launches_per_request": flash_per_request,
         "launches_upn_fo1_path": path_launches["flash_attention"],

@@ -133,6 +133,74 @@ def test_kernel_matches_plain_on_card(case, dtype, monkeypatch):
     torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
 
 
+# The edges of the card's tiles (blocks of 64 or 128 queries, 64-key tiles,
+# d padded to a multiple of 16), kept apart from CASES so the Pallas
+# interpret runs on the CPU do not grow: d=12 (plain element loads), the head dims 80 and 128
+# (16-byte copies), Sq and Sk off every tile, a 64-key tile whose keys are
+# all invalid, causal with Sq < Sk and kv_len < Sk, and 8 query heads per kv
+# head at Sq = 300.
+CARD_EDGE_CASES = [
+    (1, 2, 2, 131, 131, 12, {"causal": True}),
+    (1, 2, 1, 200, 211, 80, {"kv_valid": "random"}),
+    (2, 2, 2, 129, 77, 128, {"kv_len": 70}),
+    (1, 2, 2, 100, 200, 80, {"kv_valid": "second_tile_invalid"}),
+    (1, 4, 2, 70, 190, 128, {"causal": True, "kv_len": 150}),
+    (1, 16, 2, 300, 300, 128, {"causal": True, "kv_len": 290}),
+    (1, 2, 2, 257, 130, 16, {"kv_len": 129}),
+]
+
+
+def _edge_id(case):
+    b, h, hkv, sq, sk, d, kw = case
+    return f"{b}x{h}/{hkv}-q{sq}-k{sk}-d{d}-{'-'.join(sorted(kw))}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CARD_EDGE_CASES, ids=_edge_id)
+def test_kernel_tile_edges_on_card(case, dtype, monkeypatch):
+    """The kernel against the plain version in f32 on the same inputs: f32
+    (TF32 off) to 1e-4, bf16 to 2e-2 (bf16 probabilities before P V)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, kw = _inputs(6, *case)
+    if isinstance(kw.get("kv_valid"), str):  # "second_tile_invalid"
+        kw["kv_valid"] = np.random.default_rng(6).random(case[4]) > 0.3
+        kw["kv_valid"][64:128] = False
+    kw = {n: torch.from_numpy(x).cuda() if isinstance(x, np.ndarray) else x
+          for n, x in kw.items()}
+    dt = getattr(torch, dtype)
+    t = [torch.from_numpy(x).cuda().to(dt) for x in (q, k, v)]
+    out = fa.flash_attention(*t, **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(*(x.float() for x in t), **kw)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_query_rows_stay_finite_on_card(dtype, monkeypatch):
+    """As on the CPU: causal with Sq > Sk (the first Sq - Sk rows have no
+    key; the rest match the plain version) and an all-False kv_valid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    q, k, v, _ = _inputs(9, 1, 2, 2, 200, 72, 16, {})
+    t = [torch.from_numpy(x).cuda().to(dt) for x in (q, k, v)]
+    out = fa.flash_attention(*t, causal=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ref = fa.flash_attention_reference(*(x.float() for x in t), causal=True)
+    torch.testing.assert_close(out[:, :, 128:].float(), ref[:, :, 128:],
+                               atol=tol, rtol=0)
+    none = torch.zeros(72, dtype=torch.bool, device="cuda")
+    assert torch.isfinite(fa.flash_attention(*t, kv_valid=none)).all()
+
+
 # GQA, causal with kv_len, and the ViT's interspersed key mask
 GRAD_CASES = [CASES[3], CASES[5], CASES[6]]
 

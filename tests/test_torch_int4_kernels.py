@@ -102,10 +102,11 @@ def test_int4_mlp_plain_matches_jax(m, d, i, oracle):
 
 # ------------------------------------------------------------ on the card
 
-def _card():
+def _card(monkeypatch):
+    """Skip without a card; turn TF32 off for this test only."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
 
 INT4_CARD_SHAPES = [(1, 32, 24), (3, 64, 130), (5, 3420, 48), (8, 96, 4100),
@@ -114,10 +115,10 @@ INT4_CARD_SHAPES = [(1, 32, 24), (3, 64, 130), (5, 3420, 48), (8, 96, 4100),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", INT4_CARD_SHAPES)
-def test_int4_matmul_kernel_matches_plain_on_card(m, k, n):
+def test_int4_matmul_kernel_matches_plain_on_card(m, k, n, monkeypatch):
     from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul_reference
 
-    _card()
+    _card(monkeypatch)
     x, packed, scale = (t.cuda() for t in _t(*_int4_case(m, k, n)))
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         xd = x.to(dtype)
@@ -134,10 +135,10 @@ def test_int4_matmul_kernel_matches_plain_on_card(m, k, n):
 @pytest.mark.parametrize("m,d,i", [(1, 64, 256), (5, 256, 768),
                                    (16, 128, 128), (200, 128, 256),
                                    (8, 48, 128), (33, 2048, 1024)])
-def test_int4_mlp_kernel_matches_plain_on_card(m, d, i):
+def test_int4_mlp_kernel_matches_plain_on_card(m, d, i, monkeypatch):
     from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp_reference
 
-    _card()
+    _card(monkeypatch)
     node = {k: torch.from_numpy(np.array(v)).cuda()
             for k, v in _mlp_node(d, i).items()}
     x = torch.from_numpy(np.random.default_rng(m).standard_normal(

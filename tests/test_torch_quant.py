@@ -343,18 +343,19 @@ def test_load_flags_mirror_the_jax_api():
 
 # ------------------------------------------------------------ on the card
 
-def _card():
+def _card(monkeypatch):
+    """Skip without a card; turn TF32 off for this test only."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("x_shape", [(7, 3420), (40, 3420), (2, 1, 3420)])
-def test_w8a8_linear_on_card_matches_cpu(x_shape):
+def test_w8a8_linear_on_card_matches_cpu(x_shape, monkeypatch):
     """The card's int32 product (`torch._int_mm`, padded to its M > 16 and
     multiple-of-8 rules) equals the CPU's."""
-    _card()
+    _card(monkeypatch)
     p, x = _linear_case(9, 3420, 36, x_shape, outliers=True)
     _, mod = _port_linear(p, True)
     want = mod(torch.from_numpy(x))
@@ -367,11 +368,11 @@ def test_w8a8_linear_on_card_matches_cpu(x_shape):
 @pytest.mark.parametrize("mode,intermediate", MODE_CASES,
                          ids=[f"{m}-I{i}" for m, i in MODE_CASES])
 def test_quantized_fo1_card_matches_cpu_and_jax(jax_models, mode,
-                                                intermediate):
+                                                intermediate, monkeypatch):
     """The bridged quantized weights give the same greedy tokens in three
     places: the JAX package (CPU), the port on the CPU (plain versions) and
     the port on the card (kernels)."""
-    _card()
+    _card(monkeypatch)
     jm, tm, _ = _pair(jax_models, mode, intermediate)
     gpu = tq.quantize_model(FO1Model(tm.cfg, device="cuda",
                                      tokenizer=StubTokenizer()), mode)
