@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build the five CUDA kernels from the checkout's sources, one nvcc
+  1. build the six CUDA kernels from the checkout's sources, one nvcc
      each, started together;
   2. flash attention vs its plain PyTorch version on the card: every mask
      mode and GQA at small shapes, then the two main-path shapes (ViT full
@@ -40,25 +40,39 @@ Phases (any failure exits non-zero and prints no result line):
   8. UPN -> FO1: the first 100 proposals after filter(min_score=0,
      nms=0.8) go into one 3B grounding request (the phase-6 model); both
      kernels' launches counted over this path;
-  9. the int4 matmul vs its plain version: odd small shapes (M in
-     {1, 5, 9, 128}, N off every tile) in f32 with TF32 off (<= 2e-5 x
-     max(1, max|plain|)) and bf16 (<= 2e-2 x the same), then the 3B trunk
-     shapes (q/o 2048->2048, k/v 2048->256, gate/up 2048->11008, down
-     11008->2048) at M = 1 and M = 1771, with kernel, plain and F.linear
+ 9. the int4 matmul vs its plain version: odd small shapes and tile
+     edges (M in {1, 5, 9, 63, 64, 65, 77, 127, 128, 129}, K/2 off the
+     64-row tile, K = 11008, N off every tile, x at a 48-byte and an 8-byte
+     offset), each asserting its route (streaming for M <= 8; bf16 x on the
+     TMA/wgmma tiles where every row stride is a multiple of 16 bytes, else
+     the mma.sync tiles; f32 x on the FMA tiles), in f32 with TF32 off
+     (<= 2e-5 x max(1, max|plain|)) and bf16 (<= 2e-2 x the same), and the
+     worst relative L2 error of one output row segment (one row of one
+     128-column tile; <= 1e-4 f32, <= 1e-2 bf16), two runs bit-equal; then
+     the 3B trunk shapes (q/o 2048->2048, k/v 2048->256, gate/up
+     2048->11008, down 11008->2048) at M = 1 and M = 1771 the same way,
+     M = 1771 on the TMA route, three planted faults run through the plain
+     version (a 64-packed-row K tile zeroed, the nibbles of one column tile
+     swapped, one column tile's scales shifted by a column) that must
+     exceed the segment bound, and kernel, plain and F.linear
      (pre-dequantized bf16 weight) device times from CUDA graph replays
      beside the bound, and the kernel's eager per-call time; at M = 1 the
      weights rotate through copies larger than the L2 cache, as decode
      finds them;
  10. the fused int4 SwiGLU vs its plain version the same way: the shapes of
-     tests/test_quant.py, then D = 2048, I = 11008 at M = 1 and 1771, two
-     runs bit-equal, kernel / plain / three-F.linear times;
+     tests/test_quant.py and tile edges (M in {9, 63, 64, 65, 127, 129},
+     D/2 off the tile, x at a 48-byte offset, one shape on the mma.sync
+     tiles), routes asserted for both products, then D = 2048, I = 11008 at
+     M = 1 and 1771 with the planted faults in the down weight, two runs
+     bit-equal, kernel / plain / three-F.linear times;
  11. FO1Config.tiny() f32 (untied head) in the int4 mode, and with I = 128
      in the int4-mlp mode: greedy tokens on the card (kernels) equal those
      on the CPU (plain versions), the same quantized bytes on both;
  12. FO1Config() bf16 in the int4, int4-mlp, int8-all and w8a8 modes
      (`quant.quantize_model` on fresh random weights): grounding requests
      with the 7 demo boxes and 32 tokens, stage times, quantized bytes,
-     peak memory and kernel launches per request; in the int4 and int4-mlp
+     peak memory, kernel launches and routes per request (the prefill on
+     the TMA tiles, the decode steps streaming); in the int4 and int4-mlp
      modes the first request's region tokens and prefill logits compared
      between the kernel path and the plain path;
  13. the MSDA backward vs its plain version (autograd of the plain core):
@@ -86,7 +100,13 @@ Phases (any failure exits non-zero and prints no result line):
      flash kernel (4 launches) against its plain version (relative L2
      <= 5e-2), the peak memory of each; then three AdamW steps
      (`training.train_step.make_train_step`, 12 flash launches) on one
-     seeded batch, loss, ms and peak memory per step.
+     seeded batch, loss, ms and peak memory per step;
+ 18. the int4 unpack microbenchmark at tools/xp_int4_unpack.py's geometry
+     (gate and up packed [1024, 11008]): six decode strategies (none,
+     divide, shift, float, cvt, magic), each strategy's decoded values
+     equal to its plain version exactly (and, but for the TPU file's
+     unsigned float decode, to unpack_int4_halves), XOR checksums equal,
+     then each strategy's ms and GB/s against 3.35 TB/s.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -702,6 +722,13 @@ def phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template, extract):
 # ------------------------------------------------------------ int4 kernels
 
 INT4_F32_TOL = 2e-5
+# worst relative L2 error of one output row segment (one row of one
+# 128-column tile) against the plain version: bf16 rounds each output to
+# 8 bits (~2e-3 a row segment), f32 sums in another order (~1e-6); a wrong
+# tile moves its segments by several percent (PERF.md records the margins)
+INT4_SEG_BF16 = 1e-2
+INT4_SEG_F32 = 1e-4
+SEG_COLS = 128
 # the 3B trunk's int4 linears: q and o, k and v, gate and up, down
 TRUNK_LINEARS = (("q_o", 2048, 2048), ("k_v", 2048, 256),
                  ("gate_up", 2048, 11008), ("down", 11008, 2048))
@@ -718,22 +745,112 @@ def _rel_check(sm, what, got, ref, tol):
     return err
 
 
-def _both_dtypes(sm, what, kernel, plain, x, repeat=False):
+def _seg_rel(out, ref, cols=SEG_COLS):
+    """Worst relative L2 error of one output row segment of `cols` columns
+    (one row of one column tile). A dropped K tile moves every row; a wrong
+    column tile moves only its own segments, which a norm over a whole row
+    of 11008 columns would dilute below the rounding of the rest."""
+    import torch.nn.functional as F
+
+    m, n = ref.shape
+    pad = (-n) % cols
+    diff = F.pad(out.float() - ref.float(), (0, pad)).view(m, -1, cols)
+    den = F.pad(ref.float(), (0, pad)).view(m, -1, cols).norm(dim=-1)
+    num = diff.norm(dim=-1)
+    keep = den > 0
+    return (num[keep] / den[keep]).max().item()
+
+
+def _at_offset(x, nbytes):
+    """x copied into a fresh buffer `nbytes` past its start: a contiguous
+    tensor whose data pointer is aligned only to that offset."""
+    size = x.numel() * x.element_size()
+    buf = torch.empty(size + 256, dtype=torch.uint8, device=x.device)
+    y = buf[nbytes:nbytes + size].view(x.dtype).view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _both_dtypes(sm, what, kernel, plain, x, repeat=False, routes=None,
+                 offset=0):
     """The kernel on x in f32 (TF32 off) and bf16 against the plain version
-    on the same values in f32; optionally two kernel runs bit-equal."""
-    errs = []
-    for dtype, tol in ((torch.float32, INT4_F32_TOL),
-                       (torch.bfloat16, BF16_TOL)):
+    on the same values in f32: max |err| to tol x max(1, max|plain|) and the
+    worst row segment to INT4_SEG_*; optionally two kernel runs bit-equal;
+    optionally the route (routes = (counter dict, bf16 route)) and x placed
+    at a byte offset. Returns (max abs err, {dtype: worst segment})."""
+    errs, segs = [], {}
+    for dtype, tol, seg_tol in ((torch.float32, INT4_F32_TOL, INT4_SEG_F32),
+                                (torch.bfloat16, BF16_TOL, INT4_SEG_BF16)):
+        name = str(dtype)[6:]
         xd = x.to(dtype)
+        if offset:
+            xd = _at_offset(xd, offset)
+        before = dict(routes[0]) if routes else None
         got = kernel(xd)
         again = kernel(xd) if repeat else got
         torch.cuda.synchronize()
-        errs.append(_rel_check(sm, f"{what} {str(dtype)[6:]}", got,
-                               plain(xd.float()), tol))
+        ref = plain(xd.float())
+        errs.append(_rel_check(sm, f"{what} {name}", got, ref, tol))
+        seg = _seg_rel(got, ref)
+        segs[name] = seg
+        sm.check(seg <= seg_tol, f"{what} {name}: worst row segment relative "
+                 f"L2 {seg:.3e} (bound {seg_tol:g})")
         if repeat:
             sm.check(torch.equal(got, again),
-                     f"{what} {str(dtype)[6:]}: two runs bit-equal")
-    return max(errs)
+                     f"{what} {name}: two runs bit-equal")
+        if routes:
+            want = routes[1] if dtype == torch.bfloat16 else (
+                "gemv" if x.shape[0] <= 8 else "fma")
+            took = {r: routes[0][r] - before[r] for r in routes[0]
+                    if routes[0][r] != before[r]}
+            sm.check(set(took) == {want}, f"{what} {name}: route {took} "
+                     f"(want {want})")
+    return max(errs), segs
+
+
+def _int4_faults(packed, scale, out_pack=False, tile_rows=64, tile_cols=128):
+    """Weights under which the plain version returns what a kernel with a
+    tiling fault would: one 64-packed-row K tile zeroed; the low and high
+    nibbles swapped in one column tile (out_pack: 64 packed columns, so 128
+    outputs); one column tile's scales shifted by one column. Tiles in the
+    middle of the weight."""
+    kt = packed.shape[0] // 2 // tile_rows * tile_rows
+    zero = packed.clone()
+    zero[kt:kt + tile_rows] = 0
+    pc = tile_cols // 2 if out_pack else tile_cols
+    ct = packed.shape[1] // 2 // pc * pc
+    swap = packed.clone()
+    seg = swap[:, ct:ct + pc]
+    swap[:, ct:ct + pc] = (seg << 4) | ((seg >> 4) & 0xF)
+    n = scale.shape[0]
+    sc = n // 2 // tile_cols * tile_cols
+    shift = scale.clone()
+    shift[sc:sc + tile_cols] = torch.roll(scale, -1)[sc:sc + tile_cols]
+    return [("K tile zeroed", zero, scale), ("nibbles swapped", swap, scale),
+            ("scales shifted", packed, shift)]
+
+
+def _fault_readings(sm, what, plain, ref, faults, bound):
+    """Each planted fault's worst row segment against the true plain
+    output `ref`; each must read above the bound."""
+    out = {}
+    for name, pk, sc in faults:
+        out[name] = _seg_rel(plain(pk, sc), ref)
+        sm.check(out[name] > bound, f"{what}: planted fault '{name}' reads "
+                 f"{out[name]:.3e} > bound {bound:g}")
+    return out
+
+
+# (M, K, N, byte offset of x, route in bf16): M <= 8 streams; the TMA tiles
+# need every row stride a multiple of 16 bytes (K % 16, N % 16) and 16-byte
+# aligned pointers; other shapes take the mma.sync tiles
+INT4_CASES = ((1, 32, 24, 0, "gemv"), (5, 64, 130, 0, "gemv"),
+              (9, 3420, 200, 0, "mma"), (128, 96, 4100, 0, "mma"),
+              (5, 2048, 300, 0, "gemv"), (77, 256, 130, 0, "mma"),
+              (9, 2048, 256, 0, "tma"), (63, 2112, 256, 0, "tma"),
+              (64, 11008, 2048, 0, "tma"), (65, 2048, 11008, 0, "tma"),
+              (127, 2112, 4100, 0, "mma"), (129, 2048, 130, 0, "mma"),
+              (65, 2048, 256, 16 * 3, "tma"), (65, 2048, 256, 8, "mma"))
 
 
 def phase_int4_matmul(sm, quant, i4):
@@ -746,14 +863,16 @@ def phase_int4_matmul(sm, quant, i4):
             torch.randn(n, k, device="cuda", generator=gen) * 0.02)
 
     errs = []
-    for m, k, n in ((1, 32, 24), (5, 64, 130), (9, 3420, 200),
-                    (128, 96, 4100), (5, 2048, 300), (77, 256, 130)):
+    for m, k, n, off, route in INT4_CASES:
         packed, scale = weight(n, k)
         x = torch.randn(m, k, device="cuda", generator=gen)
         errs.append(_both_dtypes(
-            sm, f"int4_matmul M={m} K={k} N={n}",
+            sm, f"int4_matmul M={m} K={k} N={n}"
+            + (f" x at +{off} B" if off else ""),
             lambda xd: i4.int4_matmul(xd, packed, scale),
-            lambda xf: i4.int4_matmul_reference(xf, packed, scale), x))
+            lambda xf: i4.int4_matmul_reference(xf, packed, scale), x,
+            repeat=True, routes=(i4.int4_matmul.routes, route),
+            offset=off)[0])
     times = {}
     for name, k, n in TRUNK_LINEARS:
         packed, scale = weight(n, k)
@@ -761,11 +880,19 @@ def phase_int4_matmul(sm, quant, i4):
             .to(torch.bfloat16).contiguous()                     # [n, k]
         for m in (1, PREFILL_ROWS):
             x = torch.randn(m, k, device="cuda", generator=gen)
-            errs.append(_both_dtypes(
+            err, segs = _both_dtypes(
                 sm, f"int4_matmul {name} M={m} K={k} N={n}",
                 lambda xd: i4.int4_matmul(xd, packed, scale),
                 lambda xf: i4.int4_matmul_reference(xf, packed, scale), x,
-                repeat=True))
+                repeat=True, routes=(i4.int4_matmul.routes,
+                                     "gemv" if m == 1 else "tma"))
+            errs.append(err)
+            xf = x.float()
+            faults = _fault_readings(
+                sm, f"int4_matmul {name} M={m}",
+                lambda pk, sc: i4.int4_matmul_reference(xf, pk, sc),
+                i4.int4_matmul_reference(xf, packed, scale),
+                _int4_faults(packed, scale), INT4_SEG_BF16)
             xb = x.to(torch.bfloat16)
             cold = m == 1
             wq = _copies(packed.numel(), lambda: (packed.clone(),
@@ -784,14 +911,15 @@ def phase_int4_matmul(sm, quant, i4):
             times[f"{name} M={m}"] = {
                 "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "eager_ms": eager_ms}
+                "eager_ms": eager_ms, "seg_rel": segs, "faults": faults}
             sm.log(f"time int4_matmul {name} {k}->{n} M={m} bf16: kernel "
                    f"{ms:.4f} ms (eager calls {eager_ms:.4f} ms), plain "
                    f"{plain_ms:.4f} ms, F.linear on the dequantized bf16 "
                    f"weight {lib_ms:.4f} ms, bound {bound_ms:.4f} ms by "
                    f"{bound_by} ({nbytes / 1e6:.2f} MB, "
                    f"{2 * m * k * n / 1e9:.2f} GFLOP; CUDA events over CUDA "
-                   f"graph replays{', weights cold' if cold else ''})")
+                   f"graph replays{', weights cold' if cold else ''}); "
+                   f"worst row segment {segs}, planted faults {faults}")
             del wq, wl
     return max(errs), times
 
@@ -806,19 +934,31 @@ def _mlp_node(quant, gen, d, i):
             "up_s": up_s, "down_pk": down_pk, "down_s": down_s}
 
 
+# (M, D, I, byte offset of x, route in bf16): both products take it (the
+# first needs D % 16 and I % 16, the second I % 8 and (D/2) % 16)
+INT4_MLP_CASES = ((1, 64, 256, 0, "gemv"), (5, 256, 768, 0, "gemv"),
+                  (16, 128, 128, 0, "tma"), (200, 128, 256, 0, "tma"),
+                  (300, 64, 128, 0, "tma"), (8, 48, 128, 0, "gemv"),
+                  (9, 2048, 1024, 0, "tma"), (63, 2048, 1024, 0, "tma"),
+                  (64, 2048, 1024, 0, "tma"), (65, 2048, 1024, 16 * 3, "tma"),
+                  (127, 2048, 1024, 0, "tma"), (129, 2048, 1024, 0, "tma"),
+                  (33, 2112, 1024, 0, "tma"), (33, 40, 128, 0, "mma"))
+
+
 def phase_int4_mlp(sm, quant, i4mlp):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs, times = [], {}
-    for m, d, i in ((1, 64, 256), (5, 256, 768), (16, 128, 128),
-                    (200, 128, 256), (300, 64, 128), (8, 48, 128)):
+    for m, d, i, off, route in INT4_MLP_CASES:
         node = _mlp_node(quant, gen, d, i)
         x = torch.randn(m, d, device="cuda", generator=gen)
         errs.append(_both_dtypes(
-            sm, f"int4_mlp M={m} D={d} I={i}",
+            sm, f"int4_mlp M={m} D={d} I={i}"
+            + (f" x at +{off} B" if off else ""),
             lambda xd: i4mlp.int4_mlp(xd, node),
-            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True))
+            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True,
+            routes=(i4mlp.int4_mlp.routes, route), offset=off)[0])
     d, i = 2048, 11008
     node = _mlp_node(quant, gen, d, i)
     lo, hi = quant.unpack_int4_halves(node["down_pk"])
@@ -830,10 +970,20 @@ def phase_int4_mlp(sm, quant, i4mlp):
     node_bytes = sum(t.numel() * t.element_size() for t in node.values())
     for m in (1, PREFILL_ROWS):
         x = torch.randn(m, d, device="cuda", generator=gen)
-        errs.append(_both_dtypes(
+        err, segs = _both_dtypes(
             sm, f"int4_mlp D={d} I={i} M={m}",
             lambda xd: i4mlp.int4_mlp(xd, node),
-            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True))
+            lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True,
+            routes=(i4mlp.int4_mlp.routes, "gemv" if m == 1 else "tma"))
+        errs.append(err)
+        xf = x.float()
+        faults = _fault_readings(
+            sm, f"int4_mlp D={d} I={i} M={m} (faults in down)",
+            lambda pk, sc: i4mlp.int4_mlp_reference(
+                xf, dict(node, down_pk=pk, down_s=sc)),
+            i4mlp.int4_mlp_reference(xf, node),
+            _int4_faults(node["down_pk"], node["down_s"], out_pack=True),
+            INT4_SEG_BF16)
         xb = x.to(torch.bfloat16)
         cold = m == 1
         nodes = _copies(node_bytes, lambda: ({k: v.clone() for k, v in
@@ -851,14 +1001,16 @@ def phase_int4_mlp(sm, quant, i4mlp):
         bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
         times[f"M={m}"] = {"ms": ms, "plain_ms": plain_ms,
                            "library_ms": lib_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "eager_ms": eager_ms}
+                           "bound_by": bound_by, "eager_ms": eager_ms,
+                           "seg_rel": segs, "faults": faults}
         sm.log(f"time int4_mlp D={d} I={i} M={m} bf16: kernel {ms:.4f} ms "
                f"(eager calls {eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                f"three F.linear + silu on the dequantized bf16 weights "
                f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.1f} GFLOP; CUDA "
                f"events over CUDA graph replays"
-               f"{', weights cold' if cold else ''})")
+               f"{', weights cold' if cold else ''}); worst row segment "
+               f"{segs}, planted faults {faults}")
         del nodes
     return max(errs), times
 
@@ -929,6 +1081,7 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
     per_request = []
     for i, m in enumerate(msgs):
         before = (i4.int4_matmul.launches, i4mlp.int4_mlp.launches)
+        routes0 = (dict(i4.int4_matmul.routes), dict(i4mlp.int4_mlp.routes))
         stage = {}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -937,8 +1090,12 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         n = (i4.int4_matmul.launches - before[0],
              i4mlp.int4_mlp.launches - before[1])
+        routes = [{r: c[r] - c0[r] for r in c if c[r] != c0[r]} for c, c0 in
+                  zip((i4.int4_matmul.routes, i4mlp.int4_mlp.routes), routes0)]
         per_request.append({"int4_matmul": n[0], "int4_mlp": n[1],
-                            "forwards": res.num_steps})
+                            "forwards": res.num_steps,
+                            "routes_int4_matmul": routes[0],
+                            "routes_int4_mlp": routes[1]})
         sm.log(f"FO1 {mode} request {i}: prompt {res.prompt_len} tokens, "
                f"prepare {stage['prepare']:.1f} ms, encode "
                f"{stage['encode']:.1f} ms, prefill {stage['prefill']:.1f} ms,"
@@ -946,7 +1103,16 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                f"total {total_ms:.1f} ms, peak memory {peak_gb:.2f} GiB, "
                f"launches int4_matmul {n[0]} ({n[0] / res.num_steps:.1f} per "
                f"forward), int4_mlp {n[1]} ({n[1] / res.num_steps:.1f} per "
-               f"forward), parsed boxes {extract(res.text, DEMO_BOXES)}")
+               f"forward), routes {routes}, parsed boxes "
+               f"{extract(res.text, DEMO_BOXES)}")
+        # the prompt's prefill (M = prompt length) takes the TMA tiles, the
+        # decode steps (M = 1) the streaming path, nothing the mma.sync tiles
+        tiled = {"int4": routes[0], "int4-mlp": routes[1]}.get(mode)
+        if tiled is not None:
+            sm.check(tiled.get("tma", 0) > 0 and "mma" not in tiled
+                     and "fma" not in tiled,
+                     f"FO1 {mode} request {i}: prefill on the TMA tiles, "
+                     f"routes {tiled}")
         want = {"int4": n[0] > 0, "int4-mlp": n[1] > 0}.get(mode, True)
         sm.check(want and bool(np.isfinite(res.prefill_logits).all()),
                  f"FO1 {mode} request {i}: finite prefill logits, kernel "
@@ -978,6 +1144,67 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
     del model
     torch.cuda.empty_cache()
     return launches, per_request
+
+
+# ------------------------------------------------ int4 unpack benchmark
+
+def phase_int4_unpack(sm, iu, unpack_int4_halves):
+    """The nibble-decode microbenchmark at tools/xp_int4_unpack.py's
+    geometry (gate and up packed [D/2, I] = [1024, 11008], seeded bytes):
+    each strategy's decoded values equal its plain version exactly (divide,
+    shift, cvt and magic also equal unpack_int4_halves; float keeps the TPU
+    file's unsigned low nibble), the kernel's XOR checksum equals the plain
+    one, then each strategy timed as CUDA graph replays over copies larger
+    than the L2 cache, its rate against 3.35 TB/s."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    shape = (iu.D // 2, iu.I)
+    g = torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
+                      generator=gen)
+    u = torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
+                      generator=gen)
+    nbytes = 2 * g.numel()
+    halves = [torch.cat(p) for p in zip(unpack_int4_halves(g.reshape(-1)),
+                                        unpack_int4_halves(u.reshape(-1)))]
+    max_err = 0.0
+    for s in iu.STRATEGIES:
+        ck = iu.unpack_bench(g, u, s).item()
+        cp = iu.unpack_bench_reference(g, u, s).item()
+        sm.check(ck == cp, f"int4 unpack {s}: checksum kernel {ck:#010x} == "
+                 f"plain {cp:#010x}")
+        if s == "none":
+            continue
+        got = iu.unpack_bench(g, u, s, decoded=True)
+        ref = iu.unpack_bench_reference(g, u, s, decoded=True)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        max_err = max([max_err] + [(a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(got, ref)])
+        as_halves = all(torch.equal(a.float(), b.float())
+                        for a, b in zip(got, halves))
+        sm.check(same and (as_halves or s == "float"),
+                 f"int4 unpack {s}: decoded values equal the plain version "
+                 f"{same}, equal unpack_int4_halves {as_halves}")
+    copies = _copies(nbytes, lambda: (g.clone(), u.clone()))
+    iu.unpack_bench.launches = 0
+    strategies = {}
+    for s in iu.STRATEGIES:
+        ms = _graph_ms(lambda a, b: iu.unpack_bench(a, b, s), copies)
+        strategies[s] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6,
+                         "hbm_share": nbytes / ms / 1e6 / (HBM_BYTES_PER_S
+                                                            / 1e9)}
+    launches = iu.unpack_bench.launches
+    plain_ms = _timeit(lambda: iu.unpack_bench_reference(g, u, "magic"))
+    bound_ms, bound_by = _bound(nbytes + 4, 0, BF16_FLOPS)
+    sm.log("time int4 unpack (D=2048 I=11008, 22.5 MB packed, CUDA graph "
+           "replays, copies past the L2 cache): " + ", ".join(
+               f"{s} {v['ms']:.4f} ms {v['gb_per_s']:.0f} GB/s"
+               for s, v in strategies.items())
+           + f"; plain magic decode + checksum {plain_ms:.4f} ms (eager); "
+           f"bound {bound_ms:.4f} ms by {bound_by}; {launches} launches")
+    return {"launches": launches, "max_abs_err": max_err,
+            "ms": strategies["magic"]["ms"],
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "strategies": strategies}
 
 
 # --------------------------------------------------------------- training
@@ -1378,6 +1605,7 @@ def main():
     from vlm_fo1_tpu_torch.ops import flash_attention as fa
     from vlm_fo1_tpu_torch.ops import int4_matmul as i4
     from vlm_fo1_tpu_torch.ops import int4_mlp as i4mlp
+    from vlm_fo1_tpu_torch.ops import int4_unpack as iu
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
     from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
@@ -1399,10 +1627,10 @@ def main():
     import PIL
     sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build the five kernels, one nvcc each, started together
+    # phase 1: build the six kernels, one nvcc each, started together
     t0 = time.perf_counter()
     build_s = cuda_lib.build(["flash_attention", "msda", "msda_bwd",
-                              "int4_matmul", "int4_mlp"])
+                              "int4_matmul", "int4_mlp", "int4_unpack_bench"])
     sm.log("built in parallel: " + ", ".join(
         f"{n}.cu {s:.2f} s" for n, s in build_s.items())
         + f"; {time.perf_counter() - t0:.2f} s in all")
@@ -1451,6 +1679,9 @@ def main():
         sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, train, fa,
         msda)
     sm.log("FO1 training per step: " + json.dumps(train_runs))
+
+    # phase 18: the int4 unpack microbenchmark
+    unpack = phase_int4_unpack(sm, iu, i4.unpack_int4_halves)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
@@ -1517,6 +1748,12 @@ def main():
         "shape": "encoder Lq=S=85932 bf16", **bwd_times["encoder"],
         "decoder": bwd_times["decoder"],
         "upn_forward_backward": upn_grad_runs,
+    }, {
+        "name": "int4_unpack_bench", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/int4_unpack_bench.cu",
+        "replaces": "tools/xp_int4_unpack.py:84", "library_ms": None,
+        "shape": "gate and up packed [1024, 11008] int8, strategy magic",
+        **unpack,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

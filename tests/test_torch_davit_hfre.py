@@ -82,6 +82,19 @@ def test_hfre_forward():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+def test_hfre_forward_zero_boxes():
+    """A prompt without boxes gives zero region rows, not a crash."""
+    rng = np.random.default_rng(3)
+    dims = CFG.davit.embed_dims
+    aux_maps = [rand(rng, 24 >> i, 24 >> i, c) for i, c in enumerate(dims)]
+    vt_map = rand(rng, 12, 20, CFG.hfre.vt_region_feature_dim)
+    none = torch.zeros(0, 4)
+    out = hfre_forward(CFG.hfre, [torch.from_numpy(m) for m in aux_maps],
+                       none, torch.from_numpy(vt_map), none)
+    assert out.shape == (0, CFG.hfre.region_feature_dim)
+    assert out.dtype == torch.float32
+
+
 def test_hfre_unported_variants_raise():
     import dataclasses
 

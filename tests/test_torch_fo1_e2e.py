@@ -116,6 +116,19 @@ def test_greedy_tokens_and_parsed_boxes(models, which):
         extract_predictions_to_bboxes(rj.text, boxes)
 
 
+@pytest.mark.parametrize("boxes", [[], None], ids=["empty", "none"])
+def test_prompt_without_boxes_matches(models, boxes):
+    """One image and no boxes: JAX pads dummy boxes and slices them off
+    again; the port takes zero region rows. Greedy tokens agree."""
+    jm, tm = models
+    msgs = _messages(2, boxes, "cup")
+    rj = jm.generate(msgs, max_new_tokens=8, max_pixels=MAX_PIXELS)
+    rt = tm.generate(msgs, max_new_tokens=8, max_pixels=MAX_PIXELS)
+    np.testing.assert_array_equal(rt.token_ids, rj.token_ids)
+    assert (rt.num_steps, rt.prompt_len, rt.text) == \
+        (rj.num_steps, rj.prompt_len, rj.text)
+
+
 def test_stop_sequence_matches(models):
     """A stop given as an id n-gram (tokens 1..2 of the greedy answer) ends
     both loops at the same step and is trimmed from both answers."""

@@ -9,16 +9,28 @@ bf16) on the CPU, inputs from numpy seeds:
   `int4_mlp_reference` at the others of tests/test_quant.py, to 2e-5 in f32
   and 2e-2 in bf16.
 
+- the magic-number nibble decode of the tiled kernels, written in torch
+  on integer bit patterns as the CUDA code runs it, vs `unpack_int4_halves`
+  and JAX `quant.unpack_int4` for all 256 byte values, exactly;
+- the plain versions of the unpack microbenchmark's strategies vs
+  `tools/xp_int4_unpack.py`'s `unpack_divide` / `unpack_shift` /
+  `unpack_float` (imported by path), exactly.
+
 The `cuda`-marked tests hold each CUDA kernel against its plain version on
 the card (skipped without one): odd shapes, both dtypes, the streaming
-(M <= 8) and tiled paths, and bit-equal repeats.
+(M <= 8) and tiled paths, tile edges with the route each call takes, and
+bit-equal repeats; and the unpack microbenchmark's strategies.
 """
+
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import _at_offset, _seg_rel
 from torch_parity import one_torch_thread  # noqa: F401
 from vlm_fo1_tpu import nn as jnn
 from vlm_fo1_tpu.ops.int4_matmul import int4_matmul as jax_int4_matmul
@@ -26,12 +38,20 @@ from vlm_fo1_tpu.ops.int4_mlp import (
     int4_mlp_matmul as jax_int4_mlp_matmul,
     int4_mlp_reference as jax_int4_mlp_reference,
 )
+from vlm_fo1_tpu import quant as jquant
 from vlm_fo1_tpu.quant import _quantize_weight_int4, quantize_mlp_int4
-from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul
+from vlm_fo1_tpu_torch.ops import int4_unpack
+from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul, unpack_int4_halves
 from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+# worst relative L2 error of one output row segment (128 columns) on the
+# card, chip_smoke.py's bound: bf16 output rounding gives ~3e-3, a wrong
+# tile several percent
+SEG_BF16 = 1e-2
+ALL_BYTES = np.arange(-128, 128, dtype=np.int8)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _int4_case(m, k, n, seed=0):
@@ -100,6 +120,68 @@ def test_int4_mlp_plain_matches_jax(m, d, i, oracle):
                                    err_msg=dtype)
 
 
+# ------------------------------------------------------------- the decode
+
+def test_magic_decode_matches_unpack_for_all_bytes():
+    """Every byte value, both nibbles: the tiled kernels' decode (bit
+    patterns, bf16 arithmetic) gives the signed nibbles exactly."""
+    lo, hi = int4_unpack.decode_magic(torch.from_numpy(ALL_BYTES))
+    assert lo.dtype == hi.dtype == torch.bfloat16
+    tlo, thi = unpack_int4_halves(torch.from_numpy(ALL_BYTES))
+    assert torch.equal(lo.float(), tlo.float())
+    assert torch.equal(hi.float(), thi.float())
+    jlo, jhi = jquant.unpack_int4_halves(jnp.asarray(ALL_BYTES))
+    want = np.asarray(jquant.unpack_int4(jnp.asarray(ALL_BYTES[None])))
+    np.testing.assert_array_equal(lo.float().numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.float().numpy(), np.asarray(jhi))
+    np.testing.assert_array_equal(
+        torch.cat([lo[None], hi[None]]).float().numpy(),
+        want.astype(np.float32))
+
+
+def _tpu_unpack_file():
+    spec = importlib.util.spec_from_file_location(
+        "xp_int4_unpack", os.path.join(ROOT, "tools", "xp_int4_unpack.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("strategy", ["divide", "shift", "float"])
+def test_unpack_strategies_match_tpu_file(strategy):
+    xp = _tpu_unpack_file()
+    if strategy == "float":
+        want = xp.unpack_float(jnp.asarray(ALL_BYTES), jnp.bfloat16)
+        got = int4_unpack.unpack_float(torch.from_numpy(ALL_BYTES),
+                                       torch.bfloat16)
+    else:
+        fn = getattr(xp, f"unpack_{strategy}")
+        want = fn(jnp.asarray(ALL_BYTES, jnp.int32))
+        got = getattr(int4_unpack, f"unpack_{strategy}")(
+            torch.from_numpy(ALL_BYTES).to(torch.int32))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+
+
+def test_unpack_bench_plain_checksums():
+    """The CPU path of the microbenchmark: the four signed decodes give one
+    checksum, the TPU file's unsigned float decode another, the raw words
+    a third; the decoded values are the halves."""
+    rng = np.random.default_rng(7)
+    g, u = (torch.from_numpy(rng.integers(-128, 128, (8, 64), np.int8))
+            for _ in range(2))
+    sums = {s: int4_unpack.unpack_bench(g, u, s).item()
+            for s in int4_unpack.STRATEGIES}
+    assert sums["divide"] == sums["shift"] == sums["cvt"] == sums["magic"]
+    assert len({sums["none"], sums["float"], sums["magic"]}) == 3
+    lo, hi = int4_unpack.unpack_bench(g, u, "magic", decoded=True)
+    want = [torch.cat(p) for p in zip(unpack_int4_halves(g.reshape(-1)),
+                                      unpack_int4_halves(u.reshape(-1)))]
+    assert torch.equal(lo.float(), want[0].float())
+    assert torch.equal(hi.float(), want[1].float())
+
+
 # ------------------------------------------------------------ on the card
 
 def _card(monkeypatch):
@@ -152,3 +234,93 @@ def test_int4_mlp_kernel_matches_plain_on_card(m, d, i, monkeypatch):
         scale_ = max(1.0, want.abs().max().item())
         assert got.dtype == dtype and torch.equal(got, again)
         assert (got.float() - want).abs().max().item() <= tol * scale_
+
+
+# (M, K, N, byte offset of x, route of a bf16 call): tile edges of the TMA
+# tiles (M around 64 and 128, K/2 off the 64-row tile, K = 11008, N = 256
+# and 11008) and the shapes that keep the mma.sync tiles
+INT4_EDGE_CASES = [(9, 2048, 256, 0, "tma"), (63, 2112, 256, 0, "tma"),
+                   (64, 11008, 2048, 0, "tma"), (65, 2048, 11008, 0, "tma"),
+                   (127, 2112, 4100, 0, "mma"), (129, 2048, 130, 0, "mma"),
+                   (1771, 2048, 256, 0, "tma"), (65, 2048, 256, 48, "tma"),
+                   (65, 2048, 256, 8, "mma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset,route", INT4_EDGE_CASES)
+def test_int4_matmul_tile_edges_on_card(m, k, n, offset, route, monkeypatch):
+    from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul_reference
+
+    _card(monkeypatch)
+    x, packed, scale = (t.cuda() for t in _t(*_int4_case(m, k, n)))
+    xd = _at_offset(x.to(torch.bfloat16), offset)
+    before = dict(int4_matmul.routes)
+    got = int4_matmul(xd, packed, scale)
+    again = int4_matmul(xd, packed, scale)
+    torch.cuda.synchronize()
+    took = {r for r in before if int4_matmul.routes[r] != before[r]}
+    want = int4_matmul_reference(xd.float(), packed, scale)
+    assert took == {route}
+    assert torch.equal(got, again)
+    assert _seg_rel(got, want) <= SEG_BF16
+
+
+# (M, D, I, byte offset of x, route of both products in bf16)
+INT4_MLP_EDGE_CASES = [(9, 2048, 1024, 0, "tma"), (63, 2048, 1024, 0, "tma"),
+                       (64, 2048, 1024, 0, "tma"), (127, 2112, 1024, 0, "tma"),
+                       (129, 2048, 1024, 48, "tma"), (33, 40, 128, 0, "mma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,i,offset,route", INT4_MLP_EDGE_CASES)
+def test_int4_mlp_tile_edges_on_card(m, d, i, offset, route, monkeypatch):
+    from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp_reference
+
+    _card(monkeypatch)
+    node = {k: torch.from_numpy(np.array(v)).cuda()
+            for k, v in _mlp_node(d, i).items()}
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (m, d)).astype(np.float32)).cuda()
+    xd = _at_offset(x.to(torch.bfloat16), offset)
+    before = dict(int4_mlp.routes)
+    got = int4_mlp(xd, node)
+    again = int4_mlp(xd, node)
+    torch.cuda.synchronize()
+    took = {r: int4_mlp.routes[r] - before[r] for r in before
+            if int4_mlp.routes[r] != before[r]}
+    want = int4_mlp_reference(xd.float(), node).float()
+    assert took == {route: 4}
+    assert torch.equal(got, again)
+    assert _seg_rel(got, want) <= SEG_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", int4_unpack.STRATEGIES)
+def test_unpack_bench_matches_plain_on_card(strategy, monkeypatch):
+    _card(monkeypatch)
+    rng = np.random.default_rng(11)
+    g, u = (torch.from_numpy(rng.integers(-128, 128, (64, 96), np.int8))
+            .cuda() for _ in range(2))
+    got = int4_unpack.unpack_bench(g, u, strategy)
+    assert got.item() == int4_unpack.unpack_bench_reference(
+        g, u, strategy).item()
+    if strategy != "none":
+        got = int4_unpack.unpack_bench(g, u, strategy, decoded=True)
+        want = int4_unpack.unpack_bench_reference(g, u, strategy,
+                                                  decoded=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_int4_zero_rows_launch_nothing_on_card(monkeypatch):
+    _card(monkeypatch)
+    _, packed, scale = (t.cuda() for t in _t(*_int4_case(1, 64, 48)))
+    node = {k: torch.from_numpy(np.array(v)).cuda()
+            for k, v in _mlp_node(64, 128).items()}
+    before = (int4_matmul.launches, dict(int4_matmul.routes),
+              int4_mlp.launches, dict(int4_mlp.routes))
+    x = torch.empty(0, 64, dtype=torch.bfloat16, device="cuda")
+    assert int4_matmul(x, packed, scale).shape == (0, 48)
+    assert int4_mlp(x, node).shape == (0, 64)
+    assert before == (int4_matmul.launches, int4_matmul.routes,
+                      int4_mlp.launches, int4_mlp.routes)

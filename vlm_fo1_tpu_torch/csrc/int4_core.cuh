@@ -1,15 +1,34 @@
-// Shared machinery of the int4 weight kernels (int4_matmul.cu, int4_mlp.cu)
-// for Hopper (sm_90a): products of an activation matrix with int4 weights
-// stored two nibbles per byte, summed in f32, scaled after the sum.
+// Shared machinery of the int4 weight kernels (int4_matmul.cu, int4_mlp.cu,
+// int4_unpack_bench.cu) for Hopper (sm_90a): products of an activation
+// matrix with int4 weights stored two nibbles per byte, summed in f32,
+// scaled after the sum.
 //
 // Two packings of a weight W [Kc, Nc] (contraction x output) into bytes P:
 //   CK  (contraction halves)  P [Kc/2, Nc]: P[k, n] = W[k, n] | W[k+Kc/2, n] << 4
 //   OUT (output halves)       P [Kc, Nc/2]: P[k, n] = W[k, n] | W[k, n+Nc/2] << 4
 // Nibbles are signed (two's complement, [-8, 7]).
 //
-// Three paths:
-//   mma_kernel   (M > 8, bf16 x): tensor-core tiles (mma.sync, bf16 in, f32
-//     sums) of 128 rows; x and the unpacked weights staged in shared memory.
+// Four paths:
+//   tma_kernel   (M > 8, bf16 x, shapes TMA can describe; every 3B shape):
+//     wgmma fed by TMA, the product taken transposed (out^T = W^T x^T) so
+//     that the weights are the A operand in registers. One warp keeps a
+//     ring of 4-5 TMA stages in flight (mbarriers); a stage is 128
+//     contraction slots: two 128-byte-swizzled x boxes of 128 rows x 64
+//     columns (CK: columns [k0, k0+64) of each half; OUT: [k0, k0+128))
+//     and the packed bytes of the tile's weight columns (64-byte swizzle).
+//     2 or 4 consumer warpgroups, 64 weight columns each, load their
+//     fragment bytes from the packed tile, decode them in registers with
+//     the magic-number decode (decode_magic: a lop3 and a bf16x2 fma per
+//     pair, no int -> float conversion) and run m64n128k16 products with
+//     the x tile as B, f32 sums in registers. Persistent blocks, one per
+//     SM. What bounds it on the card: the bf16 tensor-core rate at the
+//     3B prefill shapes in theory; measured, the tensor pipe runs at about
+//     60% of it and the x tile re-read for every column tile (x bytes
+//     times the column tiles, from L2) comes next.
+//   mma_kernel   (M > 8, bf16 x, other shapes: row strides that are not
+//     multiples of 16 bytes, misaligned pointers): tensor-core tiles
+//     (mma.sync, bf16 in, f32 sums) of 128 rows; x and the unpacked
+//     weights staged in shared memory through registers.
 //   gemm_kernel  (M > 8, f32 x): a 64 x 64 output tile per block of 256
 //     threads, 4 x 4 outputs per thread. Each step stages 32 contraction
 //     rows: x as f32 (transposed) and the weight bytes sign-extended once
@@ -22,13 +41,16 @@
 //     shared memory and slices through an f32 workspace by finish_kernel,
 //     both in a fixed order, so results repeat bit for bit. Bound by the
 //     bytes of the packed weight.
+// Every path sums in a fixed order, so results repeat bit for bit.
 // Epilogues: SCALE  out = acc * s0[n]
 //            SWIGLU out = silu(acc0 * s0[n]) * (acc1 * s1[n])  (two weights)
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace int4k {
@@ -54,6 +76,33 @@ __device__ __forceinline__ float nib_lo(uint32_t w, int j) {
 }
 __device__ __forceinline__ float nib_hi(uint32_t w, int j) {
   return (float)((int32_t)(w << (24 - 8 * j)) >> 28);
+}
+
+// Magic-number decode of one word of packed bytes b0..b3 into four bf16x2
+// words, exact and without an int -> float conversion: n ^ 8 moves a signed
+// nibble s to s + 8 in [0, 15]; OR-ed into the mantissa of 0x4300 (bf16
+// 128.0, whose mantissa step is 1) it reads 136 + s, and one bf16x2
+// multiply-add (x * 1 - 136) leaves s. The trick of FasterTransformer's and
+// Marlin's int4 -> fp16 converters.
+//   lo[0] = (low nibble of b0, of b1), lo[1] = (b2, b3); hi likewise with
+//   the high nibbles (the low 16 bits hold the first value).
+__device__ __forceinline__ uint32_t bf16x2_fma(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+__device__ __forceinline__ void decode_magic(uint32_t w, uint32_t (&lo)[2],
+                                             uint32_t (&hi)[2]) {
+  constexpr uint32_t MASK = 0x000F000Fu, MAGIC = 0x43004300u;
+  constexpr uint32_t ONE = 0x3F803F80u, MINUS136 = 0xC308C308u;
+  w ^= 0x88888888u;
+  const uint32_t t01 = __byte_perm(w, 0u, 0x4140);  // b0 | b1 << 16
+  const uint32_t t23 = __byte_perm(w, 0u, 0x4342);  // b2 | b3 << 16
+  lo[0] = bf16x2_fma((t01 & MASK) | MAGIC, ONE, MINUS136);
+  lo[1] = bf16x2_fma((t23 & MASK) | MAGIC, ONE, MINUS136);
+  hi[0] = bf16x2_fma(((t01 >> 4) & MASK) | MAGIC, ONE, MINUS136);
+  hi[1] = bf16x2_fma(((t23 >> 4) & MASK) | MAGIC, ONE, MINUS136);
 }
 
 // the 4 bytes P[row, c0 .. c0+3] as a word; bytes past `cols` read 0
@@ -369,6 +418,310 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w0,
       }
 }
 
+// ------------------------------------------------------------ tma (bf16)
+// The tiled path on wgmma, fed by TMA (see the header). The product is
+// computed transposed, out^T = W^T x^T: the decoded weights are wgmma's A
+// operand, straight from registers, and the x tile is its B operand in
+// shared memory (K-major, 128-byte swizzle, as TMA writes it). No decoded
+// tile goes through shared memory.
+// Block: NWG consumer warpgroups (warps 0 .. 4NWG-1) and one warp that
+// issues the copies (warp 4NWG). A tile is 128 x rows by 64 NWG A rows
+// (weight columns): warpgroup wg owns A rows 64wg .. 64wg+63 and all 128 x
+// rows, so the warpgroups share each x tile. Shared memory, 1024-byte
+// aligned: STAGES x [x lo box 16 KB | x hi box 16 KB | packed NWG x 4 KB],
+// then full / empty mbarriers. The packed boxes are 64 bytes wide with
+// TMA's 64-byte swizzle, so the fragment loads of a warp, 4 rows apart,
+// hit distinct banks.
+// A fragment of thread (warp w of its warpgroup, g = lane/4, t = lane%4)
+// for k16 block kb: a0 = (row g, k 2t..2t+1), a1 = (row g+8, same k),
+// a2 = (row g, k 2t+8..2t+9), a3 = (row g+8, same k), rows counted from
+// 16w. Rows map to weight columns so that one decoded word fills a pair:
+//   CK SCALE: rows g, g+8 -> columns 16w+2g, 16w+2g+1 of packed box wg
+//     (64 columns; one 16-bit load a contraction row);
+//   CK SWIGLU: rows g, g+8 -> gate and up column 32(wg%2)+8w+g of gate
+//     box wg/2 and up box NWG/2 + wg/2, so the epilogue finds both in one
+//     thread;
+//   OUT: rows g, g+8 -> the low and high nibble of packed column
+//     32(wg%2)+8w+g of box wg/2 (64 columns x 128 rows): output columns p
+//     and N/2 + p.
+// A stage is 128 contraction slots: CK k16 blocks 0-3 are the low nibbles
+// of its 64 packed rows (x lo box), blocks 4-7 the high nibbles (x hi box);
+// OUT, its 128 packed rows (both boxes).
+namespace tma {
+constexpr int ROWS = 128;                      // x rows per tile
+constexpr int X_BYTES = ROWS * 64 * 2;         // one x box
+template <int NWG>
+struct Cfg {
+  static constexpr int P_BYTES = NWG * 4096;   // packed bytes per stage
+  static constexpr int STAGE_BYTES = 2 * X_BYTES + P_BYTES;
+  static constexpr int STAGES = NWG == 2 ? 5 : 4;
+  static constexpr int NTHREADS = 128 * NWG + 32;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 16 * STAGES + 1024;
+};
+}  // namespace tma
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// 64-bit wgmma shared-memory descriptor, 128-byte swizzle
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define I4_ACC8(i)                                                              \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+// d += A (64 x 16, bf16 fragments in registers) * B (16 x 128, K-major in
+// shared memory), f32 sums
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+      "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+      "%61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : I4_ACC8(0), I4_ACC8(8), I4_ACC8(16), I4_ACC8(24), I4_ACC8(32), I4_ACC8(40),
+        I4_ACC8(48), I4_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+#undef I4_ACC8
+
+// This thread's A fragments of one stage: a[kb][0..3] for the 8 k16 blocks.
+// Byte (r, c) of a 64-byte-wide packed box sits, under TMA's 64-byte
+// swizzle, at r*64 + (((c/16) ^ (r/2)) % 4) * 16 + c%16; every row this
+// thread reads is 16kb + 2t + {0, 1, 8, 9}, so (r/2) % 4 = t % 4 and the
+// column part of the offset is the same for all of them.
+template <int MODE, int EPI, int NWG>
+__device__ __forceinline__ void decode_frags(const uint8_t* packed, int wg, int w, int g,
+                                             int t, uint32_t (&a)[8][4]) {
+  // the thread's packed column in its box, its box, and the swizzled offset
+  const bool scale_ck = MODE == CK && EPI == SCALE;
+  const int c = scale_ck ? 16 * w + 2 * g : 32 * (wg % 2) + 8 * w + g;
+  const int box_off = scale_ck ? 4096 * wg : MODE == OUT ? 8192 * (wg / 2) : 4096 * (wg / 2);
+  const uint8_t* box = packed + box_off + 128 * t + ((((c >> 4) ^ t) & 3) << 4) + (c & 15);
+  constexpr int UP = 4096 * (NWG / 2);          // SWIGLU: gate box -> up box
+#pragma unroll
+  for (int kb = 0; kb < (MODE == CK ? 4 : 8); ++kb) {
+    const uint8_t* p = box + 16 * kb * 64;   // row 16kb + 2t
+    if (MODE == OUT) {
+      // one column p: [P(r), P(r+1), P(r+8), P(r+9)]; low nibbles are the
+      // rows of output column p (a0, a2), high nibbles those of N/2 + p
+      const uint32_t b0 = p[0], b1 = p[64], b8 = p[512], b9 = p[576];
+      uint32_t lo[2], hi[2];
+      decode_magic(b0 | (b1 << 8) | (b8 << 16) | (b9 << 24), lo, hi);
+      a[kb][0] = lo[0], a[kb][2] = lo[1], a[kb][1] = hi[0], a[kb][3] = hi[1];
+    } else {
+      uint32_t wd[2];                    // rows (r, r+1), then (r+8, r+9)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* q = p + 512 * h;
+        if (EPI == SWIGLU) {
+          // gate and up column c: [G(r0), G(r0+1), U(r0), U(r0+1)]
+          wd[h] = (uint32_t)q[0] | ((uint32_t)q[64] << 8) | ((uint32_t)q[UP] << 16) |
+                  ((uint32_t)q[UP + 64] << 24);
+        } else {
+          // columns c, c+1: [P(r0,c), P(r0+1,c), P(r0,c+1), P(r0+1,c+1)]
+          const uint32_t v0 = *reinterpret_cast<const uint16_t*>(q);
+          const uint32_t v1 = *reinterpret_cast<const uint16_t*>(q + 64);
+          wd[h] = __byte_perm(v0, v1, 0x5140);
+        }
+      }
+      // low nibbles: k16 block kb; high nibbles: block kb + 4
+      uint32_t lo[2], hi[2];
+      decode_magic(wd[0], lo, hi);
+      a[kb][0] = lo[0], a[kb][1] = lo[1], a[kb + 4][0] = hi[0], a[kb + 4][1] = hi[1];
+      decode_magic(wd[1], lo, hi);
+      a[kb][2] = lo[0], a[kb][3] = lo[1], a[kb + 4][2] = hi[0], a[kb + 4][3] = hi[1];
+    }
+  }
+}
+
+// Epilogue of one tile: d[4i + e] is A row 16w + g + 8(e/2) (a weight
+// column), x row 8i + 2t + e%2 of this warpgroup's 64 x 128 product.
+template <int MODE, int EPI, int NWG>
+__device__ __forceinline__ void tma_epilogue(const float (&d)[64], const float* s0,
+                                             const float* s1, __nv_bfloat16* out, int M,
+                                             int N, int m0, int ct, int wg, int w, int g,
+                                             int t) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int e1 = 0; e1 < 2; ++e1) {
+      const int m = m0 + 8 * i + 2 * t + e1;
+      if (m >= M) continue;
+      const float lo = d[4 * i + e1], hi = d[4 * i + 2 + e1];   // rows g, g+8
+      __nv_bfloat16* o = out + (size_t)m * N;
+      if (MODE == OUT) {
+        const int p = ct * 32 * NWG + 32 * wg + 8 * w + g;
+        if (p < N / 2) {
+          o[p] = __float2bfloat16(lo * s0[p]);
+          o[N / 2 + p] = __float2bfloat16(hi * s0[N / 2 + p]);
+        }
+      } else if (EPI == SWIGLU) {
+        const int n = ct * 32 * NWG + 32 * wg + 8 * w + g;
+        if (n < N) o[n] = __float2bfloat16(epilogue<SWIGLU>(lo, hi, s0, s1, n));
+      } else {
+        const int n = ct * 64 * NWG + 64 * wg + 16 * w + 2 * g;
+        if (n + 1 < N) {
+          *reinterpret_cast<__nv_bfloat162*>(o + n) =
+              __floats2bfloat162_rn(lo * s0[n], hi * s0[n + 1]);
+        } else if (n < N) {
+          o[n] = __float2bfloat16(lo * s0[n]);
+        }
+      }
+    }
+  }
+}
+
+// x maps: CK, the halves x[:, :K/2] and x[:, K/2:] (boxes 64 x 128); OUT,
+// x itself twice. w maps (64-byte swizzle): CK, 64 x 64 boxes of the packed
+// weight (SWIGLU: gate, up); OUT, 64 packed columns x 128 rows.
+// Persistent: block b takes output tiles b, b + gridDim.x, ... (column
+// tiles fastest, so the blocks at work share x rows in L2); the copy ring
+// runs on across tiles. Each warpgroup decodes its own fragments, runs its
+// products and waits for them; the warpgroups interleave, so some decode
+// while the others' products run.
+template <int MODE, int EPI, int NWG>
+__global__ void __launch_bounds__(tma::Cfg<NWG>::NTHREADS, 1)
+tma_kernel(const __grid_constant__ CUtensorMap xmap_lo,
+           const __grid_constant__ CUtensorMap xmap_hi,
+           const __grid_constant__ CUtensorMap wmap0,
+           const __grid_constant__ CUtensorMap wmap1, const float* __restrict__ s0,
+           const float* __restrict__ s1, __nv_bfloat16* __restrict__ out, int M,
+           int K, int N) {
+  using namespace tma;
+  constexpr int STAGES = Cfg<NWG>::STAGES, STAGE_BYTES = Cfg<NWG>::STAGE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + STAGES);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // CK: 64 packed rows a stage; OUT: 128 contraction rows a stage
+  const int steps = MODE == CK ? (K / 2 + 63) / 64 : (K + 127) / 128;
+  // output (CK SCALE), h (SWIGLU) or packed (OUT) columns of a tile
+  const int tcols = (MODE == OUT || EPI == SWIGLU) ? 32 * NWG : 64 * NWG;
+  const int ncol = ((MODE == OUT ? N / 2 : N) + tcols - 1) / tcols;
+  const int tiles = ncol * ((M + ROWS - 1) / ROWS);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * NWG);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    // ---- copies: one thread keeps the stage ring full
+    if (lane == 0) {
+      int j = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / ncol) * ROWS, c0 = (tile % ncol) * tcols;
+        for (int it = 0; it < steps; ++it, ++j) {
+          const int s = j % STAGES, use = j / STAGES;
+          if (use > 0) mbar_wait(empty0 + 8 * s, (use - 1) & 1);
+          const uint32_t full = full0 + 8 * s;
+          const uint32_t base = smem_u32(smem + s * STAGE_BYTES);
+          const uint32_t pk = base + 2 * X_BYTES;
+          mbar_expect_tx(full, STAGE_BYTES);
+          if (MODE == CK) {
+            const int k0 = it * 64;
+            tma_load(base, &xmap_lo, full, k0, m0);
+            tma_load(base + X_BYTES, &xmap_hi, full, k0, m0);
+            // box a: SCALE, columns c0 + 64a; SWIGLU, gate boxes then up
+#pragma unroll
+            for (int a = 0; a < NWG; ++a) {
+              const bool up = EPI == SWIGLU && a >= NWG / 2;
+              const int col = EPI == SWIGLU ? c0 + 64 * (a % (NWG / 2)) : c0 + 64 * a;
+              tma_load(pk + 4096 * a, up ? &wmap1 : &wmap0, full, col, k0);
+            }
+          } else {
+            const int k0 = it * 128;
+            tma_load(base, &xmap_lo, full, k0, m0);
+            tma_load(base + X_BYTES, &xmap_hi, full, k0 + 64, m0);
+#pragma unroll
+            for (int a = 0; a < NWG / 2; ++a)
+              tma_load(pk + 8192 * a, &wmap0, full, c0 + 64 * a, k0);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  int j = 0;                                    // stage counter over all tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int ks = 0; ks < steps; ++ks, ++j) {
+      const int s = j % STAGES;
+      const uint8_t* st = smem + s * STAGE_BYTES;
+      mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+      uint32_t a[8][4];
+      decode_frags<MODE, EPI, NWG>(st + 2 * X_BYTES, wg, w, g, t, a);
+      const uint32_t xb = smem_u32(st);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kb = 0; kb < 8; ++kb)
+        wgmma_rs_m64n128k16(d, a[kb],
+                            gmma_desc(xb + (kb / 4) * X_BYTES + (kb % 4) * 32, 16, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      // stage s is spent: its x boxes read by the products, its packed
+      // bytes decoded before them
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+    fence_acc(d);
+    tma_epilogue<MODE, EPI, NWG>(d, s0, s1, out, M, N, (tile / ncol) * ROWS, tile % ncol,
+                                 wg, w, g, t);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    fence_acc(d);
+  }
+}
+
 // ---------------------------------------------------------------- gemv
 // Partial sums of rows [blockIdx.y * rows_per, ...) of the packed weight into
 // part[((split * NW + w) * M + m) * N + n], f32, unscaled.
@@ -504,6 +857,144 @@ void launch_gemm(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
   dim3 grid((ncols + per - 1) / per, (M + MB - 1) / MB);
   mma_kernel<MODE, NW, EPI><<<grid, NT, 0, st>>>(x, w0, w1, s0, s1, out, M, K, N,
                                                  xvec ? 1 : 0);
+}
+
+// ---- tma launcher (host)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process already holds
+// (the kernels' libraries link only the runtime)
+inline EncodeTiledFn tensor_map_encoder() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h) fn = reinterpret_cast<EncodeTiledFn>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a 2-D map over rows x cols elements, row stride `ld` elements, with TMA's
+// 128- or 64-byte swizzle (0: none); zero fill past the edges
+inline bool tensor_map(CUtensorMap* map, const void* base, bool bf16, uint64_t rows,
+                       uint64_t cols, uint64_t ld, uint32_t box_cols, uint32_t box_rows,
+                       int swizzle) {
+  EncodeTiledFn enc = tensor_map_encoder();
+  if (!enc) return false;
+  const int esize = bf16 ? 2 : 1;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {ld * esize};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+             2, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+             : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Whether TMA can describe the operands of a product with x [M, K] (row
+// stride K) and packed weights of this MODE: every row stride a multiple of
+// 16 bytes, every base (CK: also x + K/2) 16-byte aligned.
+inline bool tma_fits(int MODE, const void* x, const void* w0, const void* w1, int K,
+                     int N) {
+  if (MODE == CK)
+    return K % 16 == 0 && N % 16 == 0 && aligned16(x) && aligned16(w0) &&
+           (w1 == nullptr || aligned16(w1));
+  return K % 8 == 0 && (N / 2) % 16 == 0 && N % 2 == 0 && aligned16(x) && aligned16(w0);
+}
+
+template <int MODE, int EPI, int NWG>
+cudaError_t launch_tma_nwg(const CUtensorMap& xl, const CUtensorMap& xh,
+                           const CUtensorMap& m0, const CUtensorMap& m1, const float* s0,
+                           const float* s1, __nv_bfloat16* out, int M, int K, int N,
+                           int dev, int grid, cudaStream_t st) {
+  using C = tma::Cfg<NWG>;
+  auto kernel = tma_kernel<MODE, EPI, NWG>;
+  static unsigned long long ready = 0;   // devices with the attribute set
+  if (!(ready >> dev & 1ull)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    ready |= 1ull << dev;
+  }
+  kernel<<<grid, C::NTHREADS, C::SMEM_BYTES, st>>>(xl, xh, m0, m1, s0, s1, out, M, K, N);
+  return cudaGetLastError();
+}
+
+// One persistent block per SM (fewer when the output has fewer tiles).
+// Four warpgroups a block read each x tile for twice the weight columns of
+// two; they take every shape that still gives three SMs in four a tile (at
+// M = 1771: gate/up, down, q/o and both MLP products; k/v keeps two).
+template <int MODE, int EPI>
+cudaError_t launch_tma(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
+                       const float* s0, const float* s1, __nv_bfloat16* out, int M, int K,
+                       int N, cudaStream_t st) {
+  CUtensorMap xl, xh, m0, m1;
+  bool ok;
+  if (MODE == CK) {
+    ok = tensor_map(&xl, x, true, M, K / 2, K, 64, tma::ROWS, 128) &&
+         tensor_map(&xh, x + K / 2, true, M, K / 2, K, 64, tma::ROWS, 128) &&
+         tensor_map(&m0, w0, false, K / 2, N, N, 64, 64, 64) &&
+         tensor_map(&m1, EPI == SWIGLU ? w1 : w0, false, K / 2, N, N, 64, 64, 64);
+  } else {
+    ok = tensor_map(&xl, x, true, M, K, K, 64, tma::ROWS, 128) &&
+         tensor_map(&m0, w0, false, K, N / 2, N / 2, 64, 128, 64);
+    xh = xl;
+    m1 = m0;
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  static int sms[64] = {0};
+  if (sms[dev] == 0) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  const int cols = MODE == OUT ? N / 2 : N;
+  const int per2 = (MODE == OUT || EPI == SWIGLU) ? 64 : 128;   // columns a tile, NWG = 2
+  const int rows = (M + tma::ROWS - 1) / tma::ROWS;
+  const int tiles4 = ((cols + 2 * per2 - 1) / (2 * per2)) * rows;
+  if (4 * tiles4 >= 3 * sms[dev])
+    return launch_tma_nwg<MODE, EPI, 4>(xl, xh, m0, m1, s0, s1, out, M, K, N, dev,
+                                        tiles4 < sms[dev] ? tiles4 : sms[dev], st);
+  const int tiles2 = ((cols + per2 - 1) / per2) * rows;
+  return launch_tma_nwg<MODE, EPI, 2>(xl, xh, m0, m1, s0, s1, out, M, K, N, dev,
+                                      tiles2 < sms[dev] ? tiles2 : sms[dev], st);
+}
+
+// Routes of one product, as the wrappers count them
+enum { ROUTE_GEMV = 0, ROUTE_FMA = 1, ROUTE_MMA = 2, ROUTE_TMA = 3 };
+
+// M > 8: f32 x takes the FMA tiles; bf16 x the TMA/wgmma tiles where TMA can
+// describe the operands, else the mma.sync tiles. Returns the route taken.
+template <int MODE, int NW, int EPI>
+int launch_tiled(const float* x, const int8_t* w0, const int8_t* w1, const float* s0,
+                 const float* s1, float* out, int M, int K, int N, cudaStream_t st,
+                 cudaError_t* err) {
+  launch_gemm<MODE, NW, EPI>(x, w0, w1, s0, s1, out, M, K, N, st);
+  *err = cudaSuccess;
+  return ROUTE_FMA;
+}
+
+template <int MODE, int NW, int EPI>
+int launch_tiled(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
+                 const float* s0, const float* s1, __nv_bfloat16* out, int M, int K,
+                 int N, cudaStream_t st, cudaError_t* err) {
+  if (tma_fits(MODE, x, w0, w1, K, N)) {
+    *err = launch_tma<MODE, EPI>(x, w0, w1, s0, s1, out, M, K, N, st);
+    return ROUTE_TMA;
+  }
+  launch_gemm<MODE, NW, EPI>(x, w0, w1, s0, s1, out, M, K, N, st);
+  *err = cudaSuccess;
+  return ROUTE_MMA;
 }
 
 template <typename T, int MODE, int NW, int MT>

@@ -26,8 +26,10 @@
 // h is the only intermediate in device memory: 2*M*I bytes in bf16 (22 KB
 // at decode), small beside the weights. M <= 8 takes the streaming path of
 // int4_core.cuh for both products (two more launches sum the row slices in
-// order); M > 8 takes the tiled paths (tensor-core tiles for bf16 x, f32
-// FMA tiles for f32 x).
+// order); M > 8 takes the tiled paths: for bf16 x the TMA-fed wgmma tiles
+// (tma_kernel; the gate and up columns of one h column sit in one thread's
+// two accumulator rows, so the SwiGLU epilogue needs no exchange), the
+// mma.sync tiles for shapes TMA cannot describe, f32 FMA tiles for f32 x.
 
 #include "int4_core.cuh"
 
@@ -37,7 +39,7 @@ template <typename T>
 cudaError_t run(const void* x, const void* gate, const void* gs, const void* up,
                 const void* us, const void* down, const void* ds, void* h,
                 void* ws, void* out, int M, int D, int I, int s1, int s2,
-                cudaStream_t st) {
+                cudaStream_t st, int* route) {
   using namespace int4k;
   const T* xt = static_cast<const T*>(x);
   const int8_t* g = static_cast<const int8_t*>(gate);
@@ -54,9 +56,14 @@ cudaError_t run(const void* x, const void* gate, const void* gs, const void* up,
     launch_finish<T, 2, SWIGLU>(part, gsf, usf, ht, M, I, s1, st);
     launch_gemv<T, OUT, 1>(ht, dn, nullptr, part, M, I, D, s2, st);
     launch_finish<T, 1, SCALE>(part, dsf, nullptr, o, M, D, s2, st);
+    route[0] = route[1] = ROUTE_GEMV;
   } else {
-    launch_gemm<CK, 2, SWIGLU>(xt, g, u, gsf, usf, ht, M, D, I, st);
-    launch_gemm<OUT, 1, SCALE>(ht, dn, nullptr, dsf, nullptr, o, M, I, D, st);
+    cudaError_t err;
+    route[0] = launch_tiled<CK, 2, SWIGLU>(xt, g, u, gsf, usf, ht, M, D, I, st, &err);
+    if (err != cudaSuccess) return err;
+    route[1] = launch_tiled<OUT, 1, SCALE>(ht, dn, nullptr, dsf, nullptr, o, M, I, D, st,
+                                           &err);
+    if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
 }
@@ -65,19 +72,22 @@ cudaError_t run(const void* x, const void* gate, const void* gs, const void* up,
 
 // x [M, D] (dtype 0 = f32, 1 = bf16); gate/up [D/2, I] int8, gs/us [I] f32;
 // down [I, D/2] int8, ds [D] f32; h [M, I] and out [M, D] in x's dtype.
-// M <= 8 needs ws of max(2*s1*M*I, s2*M*D) floats. Returns the CUDA error
-// of the launches (0 = none).
+// M <= 8 needs ws of max(2*s1*M*I, s2*M*D) floats. Writes the route of
+// each product (int4k::ROUTE_*) to route[0] (gate and up) and route[1]
+// (down); returns the CUDA error of the launches (0 = none).
 extern "C" int fo1_int4_mlp(const void* x, const void* gate, const void* gs,
                             const void* up, const void* us, const void* down,
                             const void* ds, void* h, void* ws, void* out, int M,
                             int D, int I, int s1, int s2, int dtype,
-                            void* stream) {
+                            void* stream, int* route) {
+  route[0] = route[1] = -1;
   if (M <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       dtype == 0
-          ? run<float>(x, gate, gs, up, us, down, ds, h, ws, out, M, D, I, s1, s2, st)
+          ? run<float>(x, gate, gs, up, us, down, ds, h, ws, out, M, D, I, s1, s2, st,
+                       route)
           : run<__nv_bfloat16>(x, gate, gs, up, us, down, ds, h, ws, out, M, D, I,
-                               s1, s2, st);
+                               s1, s2, st, route);
   return static_cast<int>(err);
 }

@@ -35,8 +35,9 @@ def gen_sineembed_for_position(pos, dim_feats: int):
 
     def embed(coord):
         f = coord[:, None] * (2 * math.pi) / dim_t
+        # explicit width: with zero boxes a -1 cannot be inferred
         return torch.stack([f[:, 0::2].sin(), f[:, 1::2].cos()],
-                           dim=-1).reshape(coord.shape[0], -1)
+                           dim=-1).reshape(coord.shape[0], dim_feats)
 
     return torch.cat([embed(pos[:, 1]), embed(pos[:, 0]), embed(pos[:, 2]),
                       embed(pos[:, 3])], dim=-1)

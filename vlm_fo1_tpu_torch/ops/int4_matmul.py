@@ -12,7 +12,11 @@ in f32 and scaled after it; the result comes back in x's dtype.
 for CUDA tensors and takes the plain PyTorch version
 (`int4_matmul_reference`, the halves formulation) only for CPU tensors. The
 kernel is built with nvcc into `build/` on first use (`cuda_lib`); a failed
-build or launch raises.
+build or launch raises. Each call takes one route of the kernel, counted in
+`int4_matmul.routes`: "gemv" (M <= 8, streaming), "tma" (M > 8, bf16 x,
+TMA-fed wgmma tiles; every shape whose row strides are multiples of 16
+bytes, K % 16 == 0 and N % 16 == 0, on 16-byte aligned tensors), "mma"
+(M > 8, bf16 x, other shapes: mma.sync tiles) or "fma" (M > 8, f32 x).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import torch
 from vlm_fo1_tpu_torch.ops import cuda_lib
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' route codes (int4_core.cuh ROUTE_*), in order
+ROUTES = ("gemv", "fma", "mma", "tma")
 # calls with at most this many rows take the kernel's streaming (GEMV) path
 SKINNY_ROWS = 8
 _SM_COUNT = 132
@@ -83,7 +89,8 @@ def _load():
         lib = cuda_lib.load("int4_matmul")
         fn = lib.fo1_int4_matmul
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+                       ctypes.POINTER(ci)]
         fn.restype = ci
         _lib = lib
     return _lib
@@ -108,6 +115,8 @@ def int4_matmul(x, packed, scale):
                          f"{tuple(packed.shape)} {packed.dtype}, scale "
                          f"{tuple(scale.shape)} {scale.dtype}")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out                           # nothing to launch
     splits, ws = 0, None
     if m <= SKINNY_ROWS:
         splits = skinny_splits(khalf, n)
@@ -115,15 +124,18 @@ def int4_matmul(x, packed, scale):
                          device=x.device)
     lib = _load()
     stream = torch.cuda.current_stream().cuda_stream
+    route = ctypes.c_int(-1)
     err = lib.fo1_int4_matmul(
         x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(),
-        m, k, n, splits, _DTYPES[x.dtype], stream)
+        m, k, n, splits, _DTYPES[x.dtype], stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"int4_matmul kernel launch failed: CUDA error "
                            f"{err}")
     int4_matmul.launches += 1
+    int4_matmul.routes[ROUTES[route.value]] += 1
     return out
 
 
 int4_matmul.launches = 0
+int4_matmul.routes = dict.fromkeys(ROUTES, 0)

@@ -14,7 +14,9 @@
 `int4_mlp` launches the hand-written CUDA kernel (`csrc/int4_mlp.cu`) for
 CUDA tensors and takes the plain PyTorch version (`int4_mlp_reference`)
 only for CPU tensors; a failed build or launch raises. One call counts as
-one launch however many CUDA launches it makes.
+one launch however many CUDA launches it makes. `int4_mlp.routes` counts
+the routes of the two products of each call (gate and up, then down) as
+`int4_matmul.routes` does: two per call.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from vlm_fo1_tpu_torch.ops import cuda_lib
 from vlm_fo1_tpu_torch.ops.int4_matmul import (
+    ROUTES,
     SKINNY_ROWS,
     _DTYPES,
     check_cuda_inputs,
@@ -56,7 +59,7 @@ def _load():
         lib = cuda_lib.load("int4_mlp")
         fn = lib.fo1_int4_mlp
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * 10 + [ci] * 6 + [vp, ctypes.POINTER(ci)]
         fn.restype = ci
         _lib = lib
     return _lib
@@ -91,6 +94,8 @@ def int4_mlp(x, node):
             f"{k} {tuple(node[k].shape)} {node[k].dtype}" for k in KEYS))
     dev = x.device
     out = torch.empty((m, d), dtype=x.dtype, device=dev)
+    if m == 0:
+        return out                           # nothing to launch
     h = torch.empty((m, i_dim), dtype=x.dtype, device=dev)
     s1 = s2 = 0
     ws = None
@@ -100,15 +105,19 @@ def int4_mlp(x, node):
                          dtype=torch.float32, device=dev)
     lib = _load()
     stream = torch.cuda.current_stream().cuda_stream
+    route = (ctypes.c_int * 2)(-1, -1)
     err = lib.fo1_int4_mlp(
         x.data_ptr(), *(t.data_ptr() for t in tensors), h.data_ptr(),
         None if ws is None else ws.data_ptr(), out.data_ptr(),
-        m, d, i_dim, s1, s2, _DTYPES[x.dtype], stream)
+        m, d, i_dim, s1, s2, _DTYPES[x.dtype], stream, route)
     if err != 0:
         raise RuntimeError(f"int4_mlp kernel launch failed: CUDA error "
                            f"{err}")
     int4_mlp.launches += 1
+    for r in route:
+        int4_mlp.routes[ROUTES[r]] += 1
     return out
 
 
 int4_mlp.launches = 0
+int4_mlp.routes = dict.fromkeys(ROUTES, 0)
