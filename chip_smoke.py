@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build the six CUDA kernels from the checkout's sources, one nvcc
+  1. build the nine CUDA kernels from the checkout's sources, one nvcc
      each, started together;
   2. flash attention vs its plain PyTorch version on the card: every mask
      mode and GQA at small shapes, then the two main-path shapes (ViT full
@@ -22,7 +22,12 @@ Phases (any failure exits non-zero and prints no result line):
   3. multi-scale deformable attention vs its plain version the same way:
      D in {8, 32} at small non-square levels with out-of-range locations,
      then the UPN encoder (Lq = S = 85,932) and decoder (Lq = 900) shapes
-     of the demo image, with kernel and plain times beside the bound;
+     of the demo image, with kernel and plain times beside the bound; each
+     also to the worst relative L2 error of one output row (one query of
+     one head, <= 1e-4), and at the main shapes in bf16 three planted
+     faults run through the plain version (one point of one level dropped,
+     one level's start offset by one row, x and y swapped in one level)
+     that must read above that bound;
   4. FO1Config.tiny() (untied head) f32 with shared weights: greedy
      tokens on the card (kernel) equal those on the CPU (plain version);
   5. tiny UPN f32 with shared weights: the card (kernel) and the CPU (plain
@@ -36,7 +41,8 @@ Phases (any failure exits non-zero and prints no result line):
      weights: three proposal requests on seeded synthetic 1288x966 images,
      stage times and MSDA launches per request, then one request's encoder
      output compared between the kernel path and the plain path, and the
-     kernel timed on that request's own encoder and decoder inputs;
+     kernel checked (with phase 3's row bound and planted faults) and
+     timed on that request's own encoder and decoder inputs;
   8. UPN -> FO1: the first 100 proposals after filter(min_score=0,
      nms=0.8) go into one 3B grounding request (the phase-6 model); both
      kernels' launches counted over this path;
@@ -80,7 +86,10 @@ Phases (any failure exits non-zero and prints no result line):
      7's encoder (Lq = S = 85,932) and decoder (Lq = 900) inputs with a
      seeded upstream gradient, f32 (TF32 off) and bf16, each of the three
      gradients held to 1e-4 x max(1, max|plain|) (grad_value in bf16 to
-     2e-2 x the same); kernel, plain and bound times;
+     2e-2 x the same), the worst relative L2 error of one row of
+     grad_value (one pixel of one head; <= 1e-4, bf16 <= 1e-2) and of
+     grad_loc (one query of one head; <= 1e-4), phase 3's planted faults
+     in bf16 on both; kernel, plain and bound times;
  14. tiny UPN f32 with shared weights: the parameter gradients of a fixed
      scalar of pred_boxes and pred_logits on the card (both MSDA kernels,
      4 + 4 launches) equal the CPU's (plain versions), each parameter to
@@ -106,7 +115,21 @@ Phases (any failure exits non-zero and prints no result line):
      divide, shift, float, cvt, magic), each strategy's decoded values
      equal to its plain version exactly (and, but for the TPU file's
      unsigned float decode, to unpack_int4_halves), XOR checksums equal,
-     then each strategy's ms and GB/s against 3.35 TB/s.
+     then each strategy's ms and GB/s against 3.35 TB/s;
+ 19. the MSDA streaming microbenchmark at tools/xp_msda_dma.py's geometry
+     (8 heads x 299 query blocks of 256, 4 passes): its twelve cases (the
+     file's six input sets, out width 128, no value band, one pass, 48 /
+     96 / 192 KB of shared memory a block), zeros and 32-bit checksums
+     equal to the plain version's, ms a pass, GB/s against 3.35 TB/s;
+ 20. the MSDA gather microbenchmark at tools/xp_msda_micro.py's geometry
+     (8 heads x 76,800 queries x 4 slots of 128-wide bf16 rows): blocks of
+     256 / 512 / 1024 queries, query- and slot-major indices, bit-equal to
+     the plain version, ms, us a block and ns a gathered sample;
+ 21. the chained small-product microbenchmark at tools/xp_matmul_floor.py's
+     geometry (600 steps of 1024 queries x 4 slots, mma.sync bf16): row
+     tiles of 64-512, the weight / same / k512 variants, worst row relative
+     L2 <= 1e-4 against the plain version, ms, ns a 64-query slot visit and
+     TFLOP/s.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -432,15 +455,66 @@ def _msda_inputs(gen, shapes, b, lq, m, d, npts, dtype, lo, hi):
     return value, loc, aw.reshape(b, lq, m, nl, npts).contiguous()
 
 
-def _msda_compare(sm, msda, name, value, shapes, loc, aw):
+# worst relative L2 error of one MSDA row against the plain version: one
+# (query, head) output row of D channels; in the backward one pixel's D
+# channels of grad_value and one (query, head)'s L x P x 2 entries of
+# grad_loc. The kernels and the plain versions sum the same bf16-exact
+# values times float32 weights in float32, in another order (~1e-6 a row;
+# grad_value rounded to bf16 when value is bf16, ~2^-9). An absolute bound
+# would pass a kernel that skips one point of 20: a weight of ~0.05 on values
+# of ~1 moves an output by ~0.05. Rows are divided by their norm, floored at
+# 1e-3 x the mean row norm (rows with every sample off the map are 0).
+MSDA_ROW_REL = 1e-4
+MSDA_ROW_REL_BF16 = 1e-2
+
+
+def _msda_row_rel(out, ref, width):
+    diff = (out.float() - ref).reshape(-1, width).norm(dim=-1)
+    norm = ref.reshape(-1, width).norm(dim=-1)
+    return (diff / norm.clamp_min(1e-3 * norm.mean().item())
+            .clamp_min(1e-30)).max().item()
+
+
+def _msda_faults(value, shapes, loc, aw, level=1):
+    """Inputs under which the plain version computes what a faulty kernel
+    would, in one level: one point dropped (its weight 0), the level's
+    start offset by one row (its rows read one later), x and y swapped.
+    Each entry: (name, value, loc, aw, the first row of the level, its
+    rows)."""
+    start = sum(h * w for h, w in shapes[:level])
+    n = shapes[level][0] * shapes[level][1]
+    dropped = aw.clone()
+    dropped[:, :, :, level, 0] = 0.0
+    shifted = value.clone()
+    shifted[:, start:start + n - 1] = value[:, start + 1:start + n]
+    swapped = loc.clone()
+    swapped[..., level, :, :] = loc[..., level, :, :].flip(-1)
+    return [("one point dropped", value, loc, dropped, start, n),
+            ("level start + 1 row", shifted, loc, aw, start, n),
+            ("x and y swapped", value, swapped, aw, start, n)]
+
+
+def _msda_compare(sm, msda, name, value, shapes, loc, aw, faults=False):
     out = msda.ms_deform_attn_core(value, shapes, loc, aw)
     torch.cuda.synchronize()
     ref = msda.ms_deform_attn_core_reference(value.float(), shapes, loc, aw)
     err = (out - ref).abs().max().item()
     tol = F32_TOL if value.dtype == torch.float32 else BF16_TOL
-    sm.check(bool(torch.isfinite(out).all()) and err <= tol,
+    d = value.shape[-1]
+    rel = _msda_row_rel(out, ref, d)
+    sm.check(bool(torch.isfinite(out).all()) and err <= tol
+             and rel <= MSDA_ROW_REL,
              f"msda {name} {str(value.dtype)[6:]} value={tuple(value.shape)}"
-             f" Lq={loc.shape[1]} max_abs_err={err:.3e} (tol {tol:g})")
+             f" Lq={loc.shape[1]} max_abs_err={err:.3e} (tol {tol:g}), "
+             f"worst row relative L2 {rel:.2e} (bound {MSDA_ROW_REL:g})")
+    if faults:
+        for what, v, lc, a, _, _ in _msda_faults(value.float(), shapes, loc,
+                                                 aw):
+            bad = msda.ms_deform_attn_core_reference(v, shapes, lc, a)
+            fr = _msda_row_rel(bad, ref, d)
+            sm.check(fr > MSDA_ROW_REL,
+                     f"msda {name} planted fault ({what}, plain version): "
+                     f"worst row relative L2 {fr:.3g} > {MSDA_ROW_REL:g}")
     return err
 
 
@@ -473,7 +547,8 @@ def phase_msda(sm, msda):
             inp = _msda_inputs(gen, shapes, 1, lq, 8, 32, 4, dtype,
                                -0.05, 1.05)
             errs.append(_msda_compare(sm, msda, f"{name} synthetic",
-                                      inp[0], shapes, *inp[1:]))
+                                      inp[0], shapes, *inp[1:],
+                                      faults=dtype == torch.bfloat16))
         _msda_time(sm, msda, f"{name} synthetic (uniform locations)",
                    inp[0], shapes, *inp[1:])
     return max(errs)
@@ -680,7 +755,7 @@ def phase_upn(sm, upn_mod, msda):
     for key in ("encoder", "decoder"):
         value, shapes, loc, aw = captured[key]
         errs.append(_msda_compare(sm, msda, f"{key} (request 0's inputs)",
-                                  value, shapes, loc, aw))
+                                  value, shapes, loc, aw, faults=True))
         times[key] = _msda_time(sm, msda, f"{key} (request 0's inputs)",
                                 value, shapes, loc, aw)
     return upn, launches, per_request, times, max(errs), captured
@@ -1207,6 +1282,165 @@ def phase_int4_unpack(sm, iu, unpack_int4_halves):
             "strategies": strategies}
 
 
+# ------------------------------------------------ MSDA microbenchmarks
+
+def _hbm(nbytes, ms):
+    """(GB/s, share of the device memory rate) of nbytes in ms."""
+    rate = nbytes / ms / 1e6
+    return rate, rate / (HBM_BYTES_PER_S / 1e9)
+
+
+def phase_msda_dma(sm, md):
+    """19. the MSDA streaming microbenchmark at tools/xp_msda_dma.py's
+    geometry (8 heads x 299 query blocks of 256, val4 band [26624, 128]
+    bf16): every case's out block of zeros and 32-bit checksum equal the
+    plain version's exactly, then each case timed as CUDA graph replays
+    (its arrays, 0.2-0.4 GB, stream past the L2 cache), ms a pass and for
+    its passes, GB/s against 3.35 TB/s."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    inputs = md.make_inputs(gen, device="cuda")
+    for name, flags, out_w, passes, kb in md.CASES:
+        out, ck = md.dma_bench(inputs, flags, out_w, passes, kb)
+        ref_out, ref_ck = md.dma_bench_reference(inputs, flags, out_w, passes)
+        torch.cuda.synchronize()
+        sm.check(torch.equal(out, ref_out) and ck.item() == ref_ck.item(),
+                 f"msda dma {name}: zeros equal {torch.equal(out, ref_out)},"
+                 f" checksum kernel {ck.item() & 0xFFFFFFFF:#010x} == plain "
+                 f"{ref_ck.item() & 0xFFFFFFFF:#010x}")
+    md.dma_bench.launches = 0
+    cases = {}
+    for name, flags, out_w, passes, kb in md.CASES:
+        ms = _graph_ms(lambda: md.dma_bench(inputs, flags, out_w, passes, kb),
+                       [()])
+        nbytes = md.case_bytes(inputs, flags, out_w)
+        rate, share = _hbm(nbytes, ms / passes)
+        cases[name] = {"ms": ms, "ms_pass": ms / passes, "mb_pass":
+                       nbytes / 1e6, "gb_per_s": rate, "hbm_share": share}
+    launches = md.dma_bench.launches
+    prod = md.CASES[5]
+    plain_ms = _timeit(lambda: md.dma_bench_reference(inputs, *prod[1:4]),
+                       n=3)
+    nbytes = md.case_bytes(inputs, prod[1], prod[2]) * prod[3]
+    bound_ms, bound_by = _bound(nbytes, 0, BF16_FLOPS)
+    sm.log("time msda dma (CUDA graph replays): " + "; ".join(
+        f"{n} {v['ms_pass']:.4f} ms/pass ({v['mb_pass']:.1f} MB) "
+        f"{v['gb_per_s']:.0f} GB/s ({100 * v['hbm_share']:.0f}%)"
+        for n, v in cases.items())
+        + f"; production case {cases[prod[0]]['ms']:.4f} ms for {prod[3]} "
+        f"passes, bound {bound_ms:.4f} ms by {bound_by}, plain "
+        f"{plain_ms:.3f} ms; {launches} launches")
+    return {"launches": launches, "max_abs_err": 0.0,
+            "shape": f"{prod[0]}, {prod[3]} passes",
+            "ms": cases[prod[0]]["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": cases}
+
+
+def phase_msda_micro(sm, mm):
+    """20. the MSDA gather microbenchmark at tools/xp_msda_micro.py's
+    geometry (8 heads x 76,800 queries x 4 slots, val4 [16384, 128] bf16):
+    for each query block (256, 512, 1024) and index layout (query-major,
+    slot-major) the kernel's output equals the plain version's bit for bit
+    (both sum the same exact products in slot order in float32), then each
+    is timed as CUDA graph replays: ms, us a block (total over blocks), ns a
+    gathered sample."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    variants = [(qb, t) for qb in mm.BLOCKS for t in (False, True)]
+    inputs = {}
+    for qb, t in variants:
+        inputs[qb, t] = mm.make_inputs(qb, t, gen, device="cuda")
+        got = mm.gather_bench(*inputs[qb, t], qb, t)
+        ref = mm.gather_reference(*inputs[qb, t], qb, t)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        sm.check(torch.equal(got, ref),
+                 f"msda micro qb={qb} {'slot' if t else 'query'}-major: "
+                 f"bit-equal to the plain version (max_abs_err={err:.1e})")
+        del got, ref
+    samples = mm.HEADS * mm.LQP * mm.S
+    mm.gather_bench.launches = 0
+    cases = {}
+    for qb, t in variants:
+        args = inputs[qb, t]
+        colmap = mm.column_map(args[4])
+        ms = _graph_ms(lambda: mm.gather_bench(*args, qb, t, colmap), [()])
+        blocks = mm.HEADS * mm.LQP // qb
+        cases[f"qb{qb}{'-t' if t else ''}"] = {
+            "ms": ms, "us_per_block": ms * 1e3 / blocks,
+            "ns_per_sample": ms * 1e6 / samples}
+    launches = mm.gather_bench.launches
+    args = inputs[512, True]
+    plain_ms = _timeit(lambda: mm.gather_reference(*args, 512, True), n=3)
+    val4, code, delta, w4, _ = args
+    nbytes = sum(x.numel() * x.element_size() for x in (val4, code, w4)) \
+        + mm.HEADS * mm.LQP * (mm.S * 4 + mm.D4 * 4)
+    bound_ms, bound_by = _bound(nbytes, 2 * samples * mm.D4, F32_FLOPS)
+    sm.log("time msda micro (CUDA graph replays): " + "; ".join(
+        f"{n} {v['ms']:.4f} ms, {v['us_per_block']:.3f} us/block, "
+        f"{v['ns_per_sample']:.4f} ns/sample" for n, v in cases.items())
+        + f"; bound {bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB);"
+        f" plain qb512-t {plain_ms:.3f} ms; {launches} launches")
+    del inputs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": 0.0,
+            "shape": "qb512-t (512 queries a block, slot-major)",
+            "ms": cases["qb512-t"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": cases}
+
+
+# worst relative L2 error of one output row of the chained products against
+# the plain version: the tensor cores add a k-step's 16 products in their
+# own order with fewer guard bits than a chain of f32 multiply-adds (a row
+# of 128 columns over 128-512 products reads ~1e-6); a wrong slot block or
+# row tile moves a row by O(1)
+FLOOR_ROW_REL = 1e-4
+
+
+def phase_matmul_floor(sm, mf):
+    """21. the chained small-product microbenchmark at
+    tools/xp_matmul_floor.py's geometry (600 steps of 1024 queries x 4
+    slots): each case's call, as it is timed, against the plain version of
+    its tile (every step writes the same tile; worst row relative L2 <=
+    FLOOR_ROW_REL), then each timed as CUDA graph replays: ms, ns a
+    64-query slot visit, TFLOP/s against 989."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lhs, rhs, w = mf.make_inputs(gen, device="cuda")
+    worst = 0.0
+    for name, rows, variant in mf.CASES:
+        got = mf.floor_bench(lhs, rhs, w, variant, rows)
+        ref = mf.floor_reference(lhs, rhs, w, variant)
+        torch.cuda.synchronize()
+        rel = _row_rel(got, ref)
+        worst = max(worst, rel)
+        sm.check(rel <= FLOOR_ROW_REL,
+                 f"matmul floor {name}: worst row relative L2 {rel:.2e} "
+                 f"(bound {FLOOR_ROW_REL:g})")
+    mf.floor_bench.launches = 0
+    cases = {}
+    visits = mf.NSTEP * (mf.QB // 64) * mf.SLOTS
+    for name, rows, variant in mf.CASES:
+        ms = _graph_ms(lambda: mf.floor_bench(lhs, rhs, w, variant, rows),
+                       [()])
+        cases[name] = {"ms": ms, "ns_per_visit": ms * 1e6 / visits,
+                       "tflops": mf.FLOPS / ms / 1e9}
+    launches = mf.floor_bench.launches
+    plain_ms = _timeit(lambda: mf.floor_reference(lhs, rhs, w, "chain",
+                                                  mf.NSTEP), n=2)
+    nbytes = lhs.numel() // 4 * 2 + rhs.numel() * 2 + mf.QB * 128 * 4
+    bound_ms, bound_by = _bound(nbytes, mf.FLOPS, BF16_FLOPS)
+    sm.log("time matmul floor (CUDA graph replays): " + "; ".join(
+        f"{n} {v['ms']:.4f} ms, {v['ns_per_visit']:.2f} ns/64q-slot, "
+        f"{v['tflops']:.0f} TFLOP/s" for n, v in cases.items())
+        + f"; rows64 bound {bound_ms:.4f} ms by {bound_by}; plain "
+        f"{plain_ms:.3f} ms; {launches} launches")
+    return {"launches": launches, "max_abs_err": worst,
+            "shape": "rows64 chain, 600 steps of 1024 x 128 x (4 x 128)",
+            "ms": cases["rows64"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "cases": cases}
+
+
 # --------------------------------------------------------------- training
 
 # MSDA backward kernel vs its plain version, relative to the largest plain
@@ -1234,7 +1468,16 @@ def _msda_bwd_cost(value, shapes, loc):
     return nbytes, (16 * d + 30) * _msda_samples(shapes, loc)
 
 
-def _msda_bwd_compare(sm, msda, name, value, shapes, loc, aw, g):
+def _msda_bwd_rows(value, loc, grads, ref):
+    """(grad_value, grad_loc) worst row relative L2 errors."""
+    d = value.shape[-1]
+    lp2 = loc.shape[3] * loc.shape[4] * 2
+    return (_msda_row_rel(grads[0], ref[0], d),
+            _msda_row_rel(grads[1], ref[1], lp2))
+
+
+def _msda_bwd_compare(sm, msda, name, value, shapes, loc, aw, g,
+                      faults=False):
     got = msda.ms_deform_attn_core_backward(value, shapes, loc, aw, g)
     torch.cuda.synchronize()
     ref = msda.ms_deform_attn_core_backward_reference(value.float(), shapes,
@@ -1252,6 +1495,30 @@ def _msda_bwd_compare(sm, msda, name, value, shapes, loc, aw, g):
                  f"Lq={loc.shape[1]} max_abs_err={err:.3e} (bound "
                  f"{bound:.3e} = {tol:g} x max(1, max|plain|))")
         errs.append(err)
+    rel_v, rel_l = _msda_bwd_rows(value, loc, got, ref)
+    bound_v = (MSDA_ROW_REL_BF16 if value.dtype == torch.bfloat16
+               else MSDA_ROW_REL)
+    sm.check(rel_v <= bound_v and rel_l <= MSDA_ROW_REL,
+             f"msda backward {name} {str(value.dtype)[6:]}: worst row "
+             f"relative L2 grad_value {rel_v:.2e} (bound {bound_v:g}), "
+             f"grad_loc {rel_l:.2e} (bound {MSDA_ROW_REL:g})")
+    if faults:
+        for what, v, lc, a, start, n in _msda_faults(value.float(), shapes,
+                                                     loc, aw):
+            bad = list(msda.ms_deform_attn_core_backward_reference(
+                v, shapes, lc, a, g))
+            if what.startswith("level start"):
+                # a kernel that reads the level one row late scatters there
+                gv = torch.zeros_like(bad[0])
+                gv[:, :start] = bad[0][:, :start]
+                gv[:, start + n:] = bad[0][:, start + n:]
+                gv[:, start + 1:start + n] = bad[0][:, start:start + n - 1]
+                bad[0] = gv
+            fv, fl = _msda_bwd_rows(value, loc, bad, ref)
+            sm.check(fv > bound_v and fl > MSDA_ROW_REL,
+                     f"msda backward {name} planted fault ({what}, plain "
+                     f"version): worst row relative L2 grad_value {fv:.3g} "
+                     f"> {bound_v:g}, grad_loc {fl:.3g} > {MSDA_ROW_REL:g}")
     return errs
 
 
@@ -1295,7 +1562,8 @@ def phase_msda_bwd(sm, msda, captured):
                         generator=gen)
         for dt in (torch.float32, torch.bfloat16):
             errs += _msda_bwd_compare(sm, msda, f"{key} (request 0's inputs)",
-                                      value.to(dt), shapes, loc, aw, g)
+                                      value.to(dt), shapes, loc, aw, g,
+                                      faults=dt == torch.bfloat16)
         times[key] = _msda_bwd_time(sm, msda, f"{key} (request 0's inputs)",
                                     value, shapes, loc, aw, g)
     return max(errs), times
@@ -1606,6 +1874,9 @@ def main():
     from vlm_fo1_tpu_torch.ops import int4_matmul as i4
     from vlm_fo1_tpu_torch.ops import int4_mlp as i4mlp
     from vlm_fo1_tpu_torch.ops import int4_unpack as iu
+    from vlm_fo1_tpu_torch.ops import matmul_floor as mf
+    from vlm_fo1_tpu_torch.ops import msda_dma as md
+    from vlm_fo1_tpu_torch.ops import msda_micro as mm
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
     from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
@@ -1627,10 +1898,12 @@ def main():
     import PIL
     sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build the six kernels, one nvcc each, started together
+    # phase 1: build the nine kernels, one nvcc each, started together
     t0 = time.perf_counter()
     build_s = cuda_lib.build(["flash_attention", "msda", "msda_bwd",
-                              "int4_matmul", "int4_mlp", "int4_unpack_bench"])
+                              "int4_matmul", "int4_mlp", "int4_unpack_bench",
+                              "msda_dma_bench", "msda_micro_bench",
+                              "matmul_floor_bench"])
     sm.log("built in parallel: " + ", ".join(
         f"{n}.cu {s:.2f} s" for n, s in build_s.items())
         + f"; {time.perf_counter() - t0:.2f} s in all")
@@ -1682,6 +1955,11 @@ def main():
 
     # phase 18: the int4 unpack microbenchmark
     unpack = phase_int4_unpack(sm, iu, i4.unpack_int4_halves)
+
+    # phases 19-21: the MSDA microbenchmarks
+    dma = phase_msda_dma(sm, md)
+    micro = phase_msda_micro(sm, mm)
+    floor = phase_matmul_floor(sm, mf)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
@@ -1754,6 +2032,18 @@ def main():
         "replaces": "tools/xp_int4_unpack.py:84", "library_ms": None,
         "shape": "gate and up packed [1024, 11008] int8, strategy magic",
         **unpack,
+    }, {
+        "name": "msda_dma_bench", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/msda_dma_bench.cu",
+        "replaces": "tools/xp_msda_dma.py:56", **dma,
+    }, {
+        "name": "msda_micro_bench", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/msda_micro_bench.cu",
+        "replaces": "tools/xp_msda_micro.py:44", **micro,
+    }, {
+        "name": "matmul_floor_bench", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/matmul_floor_bench.cu",
+        "replaces": "tools/xp_matmul_floor.py:47", **floor,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -146,8 +146,8 @@ def test_stop_sequence_matches(models):
 
 
 def test_port_and_example_never_import_jax(tmp_path):
-    """Importing every module of the port (the training modules named
-    explicitly) and running the port's examples on the CPU (the FO1 one
+    """Importing every module of the port (the training modules and the
+    MSDA microbenchmarks named explicitly) and running the port's examples on the CPU (the FO1 one
     also in the int4 mode, and one training step with a checkpoint) loads
     neither JAX nor the JAX package."""
     runs = [
@@ -167,6 +167,8 @@ def test_port_and_example_never_import_jax(tmp_path):
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "from vlm_fo1_tpu_torch.training import checkpointing, train_step\n"
+        "from vlm_fo1_tpu_torch.ops import matmul_floor, msda_dma, "
+        "msda_micro\n"
         f"for script, extra in {runs!r}:\n"
         "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
         " + extra\n"

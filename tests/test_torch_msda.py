@@ -165,3 +165,106 @@ def test_kernel_matches_plain_on_card(d, dtype):
     ref = msda.ms_deform_attn_core_reference(v.float(), SHAPES, lc, aw)
     tol = 1e-4 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out, ref, atol=tol, rtol=0)
+
+
+def _card_inputs(shapes, lq, d, dtype, case, seed, b=1, m=8, p=4):
+    """CUDA inputs: locations uniform in [-0.1, 1.1] ("random") or on cell
+    edges ("edges": pixel centres plus whole-pixel offsets, where
+    loc * W - 0.5 is an integer or one rounding from it)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    nl = len(shapes)
+    value = torch.randn(b, s, m, d, device="cuda", generator=gen).to(
+        getattr(torch, dtype))
+    if case == "edges":
+        wh = torch.tensor([[w, h] for h, w in shapes], device="cuda",
+                          dtype=torch.float32)[:, None, :]
+        k = torch.randint(-2, 13, (b, lq, m, nl, p, 2), device="cuda",
+                          generator=gen)
+        loc = (k + 0.5) / wh
+    else:
+        loc = -0.1 + 1.2 * torch.rand(b, lq, m, nl, p, 2, device="cuda",
+                                      generator=gen)
+    aw = torch.softmax(torch.randn(b, lq, m, nl * p, device="cuda",
+                                   generator=gen), -1)
+    return value, loc.contiguous(), aw.reshape(b, lq, m, nl, p).contiguous()
+
+
+def _worst_row_rel(out, ref, d):
+    diff = (out - ref).reshape(-1, d).norm(dim=-1)
+    norm = ref.reshape(-1, d).norm(dim=-1)
+    return (diff / norm.clamp_min(1e-3 * norm.mean().item())
+            .clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lq", [37, 900])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 12, 20])
+def test_kernel_widths_and_launch_sizes_on_card(d, lq, dtype, monkeypatch):
+    """Every channel group width (D = 8 .. 128: 1 to 16 lanes; D = 12, 20
+    take the scalar channel loads, a lane's last channels cut short), Lq
+    not a multiple of a block's queries (37), and the decoder-sized launch
+    (900 queries, samples split over more lanes): worst row (one query of
+    one head) relative L2 <= 1e-4 against the plain version on the same
+    values (chip_smoke.py's MSDA_ROW_REL)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((12, 15), (6, 8), (3, 4))
+    v, lc, aw = _card_inputs(shapes, lq, d, dtype, "random", seed=d + lq)
+    out = msda.ms_deform_attn_core(v, shapes, lc, aw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_core_reference(v.float(), shapes, lc, aw)
+    assert _worst_row_rel(out, ref, d) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "edges"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_encoder_layout_on_card(case, dtype, monkeypatch):
+    """The UPN encoder's layout at a cut size (five levels of a 224x288
+    input, Lq = S = 5375, 8 heads, D = 32), with uniform samples and with
+    samples on cell edges, where the kernel must pick the plain version's
+    cell."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((56, 72), (28, 36), (14, 18), (7, 9), (4, 5))
+    s = sum(h * w for h, w in shapes)
+    v, lc, aw = _card_inputs(shapes, s, 32, dtype, case, seed=11)
+    out = msda.ms_deform_attn_core(v, shapes, lc, aw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_core_reference(v.float(), shapes, lc, aw)
+    assert _worst_row_rel(out, ref, 32) <= 1e-4
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+def _offset_view(t):
+    """t's values in a contiguous view one element into a larger storage,
+    so that its data pointer is off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [12, 32])
+def test_kernel_unaligned_value_on_card(d, dtype, monkeypatch):
+    """A value tensor whose data pointer is off 16-byte alignment (a
+    contiguous view one element into its storage) takes the scalar channel
+    loads, at the decoder-sized launch: worst row relative L2 <= 1e-4
+    against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((12, 15), (6, 8), (3, 4))
+    v, lc, aw = _card_inputs(shapes, 900, d, dtype, "random", seed=d + 5)
+    v = _offset_view(v)
+    assert v.is_contiguous() and v.data_ptr() % 16
+    out = msda.ms_deform_attn_core(v, shapes, lc, aw)
+    torch.cuda.synchronize()
+    ref = msda.ms_deform_attn_core_reference(v.float(), shapes, lc, aw)
+    assert _worst_row_rel(out, ref, d) <= 1e-4

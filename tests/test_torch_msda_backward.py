@@ -291,3 +291,107 @@ def test_backward_kernel_matches_plain_on_card(d, dtype, case, monkeypatch):
     for leaf, y in zip(leaves, want):
         torch.testing.assert_close(leaf.grad.float(), y.float(), atol=tol,
                                    rtol=0)
+
+
+def _card_inputs(shapes, lq, d, dtype, case, seed, b=1, m=8, p=4):
+    """CUDA inputs and a seeded upstream gradient: locations uniform in
+    [-0.1, 1.1] or on cell edges (pixel centres plus whole-pixel
+    offsets)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    nl = len(shapes)
+    value = torch.randn(b, s, m, d, device="cuda", generator=gen).to(
+        getattr(torch, dtype))
+    if case == "edges":
+        wh = torch.tensor([[w, h] for h, w in shapes], device="cuda",
+                          dtype=torch.float32)[:, None, :]
+        k = torch.randint(-2, 13, (b, lq, m, nl, p, 2), device="cuda",
+                          generator=gen)
+        loc = (k + 0.5) / wh
+    else:
+        loc = -0.1 + 1.2 * torch.rand(b, lq, m, nl, p, 2, device="cuda",
+                                      generator=gen)
+    aw = torch.softmax(torch.randn(b, lq, m, nl * p, device="cuda",
+                                   generator=gen), -1)
+    g = torch.randn(b, lq, m * d, device="cuda", generator=gen)
+    return (value, loc.contiguous(),
+            aw.reshape(b, lq, m, nl, p).contiguous(), g)
+
+
+def _assert_card_grads(value, shapes, loc, aw, g):
+    """Each gradient within 1e-4 x max(1, max|plain|) (grad_value in bf16:
+    2e-2), as chip_smoke.py phase 13."""
+    got = msda.ms_deform_attn_core_backward(value, shapes, loc, aw, g)
+    torch.cuda.synchronize()
+    want = msda.ms_deform_attn_core_backward_reference(value.float(),
+                                                       shapes, loc, aw, g)
+    for k, (x, y) in enumerate(zip(got, want)):
+        bf16 = k == 0 and value.dtype == torch.bfloat16
+        tol = (2e-2 if bf16 else 1e-4) * max(1.0, y.abs().max().item())
+        assert x.dtype == (value.dtype if k == 0 else torch.float32)
+        torch.testing.assert_close(x.float(), y, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lq", [37, 900])
+@pytest.mark.parametrize("d", [8, 16, 32, 64, 128, 12, 20])
+def test_backward_kernel_widths_and_launch_sizes_on_card(d, lq, dtype,
+                                                         monkeypatch):
+    """Every channel group width (D = 8 .. 128; the vector reductions on
+    two channel quads; D = 12, 20 take the scalar loads and float32
+    atomics), Lq not a multiple of a block's queries (37), and the
+    decoder-sized launch (900 queries, samples split over more lanes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((12, 15), (6, 8), (3, 4))
+    _assert_card_grads(*_with_shapes(shapes, *_card_inputs(
+        shapes, lq, d, dtype, "random", seed=d + lq)))
+
+
+def _with_shapes(shapes, value, loc, aw, g):
+    return value, shapes, loc, aw, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "edges"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_kernel_encoder_layout_on_card(case, dtype, monkeypatch):
+    """The UPN encoder's layout at a cut size (five levels of a 224x288
+    input, Lq = S = 5375, 8 heads, D = 32), uniform and cell-edge
+    samples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((56, 72), (28, 36), (14, 18), (7, 9), (4, 5))
+    s = sum(h * w for h, w in shapes)
+    _assert_card_grads(*_with_shapes(shapes, *_card_inputs(
+        shapes, s, 32, dtype, case, seed=12)))
+
+
+def _offset_view(t):
+    """t's values in a contiguous view one element into a larger storage,
+    so that its data pointer is off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [12, 32])
+def test_backward_kernel_unaligned_inputs_on_card(d, dtype, monkeypatch):
+    """value and the upstream gradient as contiguous views off 16-byte
+    alignment take the scalar channel loads and scalar float32 atomics, at
+    the decoder-sized launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    shapes = ((12, 15), (6, 8), (3, 4))
+    value, loc, aw, g = _card_inputs(shapes, 900, d, dtype, "random",
+                                     seed=d + 6)
+    value, g = _offset_view(value), _offset_view(g)
+    assert value.data_ptr() % 16 and g.data_ptr() % 16
+    _assert_card_grads(value, shapes, loc, aw, g)

@@ -14,159 +14,173 @@
 // start[l]); locations [B, Lq, M, L, P, 2] and weights [B, Lq, M, L, P] in
 // float32; output [B, Lq, M, D] in float32.
 //
-// What bounds it on the card: memory traffic. Each sample does 4 corner
-// reads and ~10 FLOPs per channel, while the locations and weights (12 bytes
-// per sample and head) stream once from device memory and the value maps are
-// read many times over. At the UPN encoder's shape (Lq = S = 85,932, M = 8,
-// L = 5, P = 4, D = 32) one call moves ~300 MB at least and does ~3.5 GFLOP.
+// What bounds it on the card. The function streams ~300 MB once at the UPN
+// encoder's shape (Lq = S = 85,932, M = 8, L = 5, P = 4, D = 32: 0.089 ms at
+// 3.35 TB/s), but it gathers 4 corners x 64 bytes for each of 13.75 M
+// samples, ~3.5 GB served by L2 and L1: the gather, and the instructions
+// that address it, set the time. The earlier design (one warp per
+// (batch, query, head), lane = channel) spent most of them on coordinate
+// arithmetic that all 32 lanes repeated, and had little independent work
+// per lane between dependent loads.
 //
-// Design: the TPU kernel's quad-packed maps, one-hot MXU selection matmuls,
-// row bands and level grouping exist because the TPU has no fast gather; the
-// card has one. So this is the reference CUDA im2col's shape: one group of
-// TPG lanes per (batch, query, head), lane = channel. At D = 32 a group is a
-// warp and one corner read is one coalesced 64-byte row in bfloat16, and the
-// level maps (44 MB in bfloat16 at the encoder's shape) mostly stay in the
-// 50 MB L2. Smaller heads (D = 8, 16) pack 4 or 2 groups into a warp; wider
-// heads (D <= 128) give each lane up to 4 channels. Per level, the group's
-// lanes load P (location, weight) triples side by side and pass each one to
-// all lanes with a warp shuffle. Accumulation is fp32.
+// Design (the thread map, windows and order of msda_common.cuh): a team of
+// 4 lanes per (batch, query, head) at D = 32, 8 channels a lane, so a
+// corner read is one 16-byte load; each sample's window computed once per
+// team and shared through shared memory; a chunk of 8 samples unrolled, so
+// a lane has up to 32 corner loads in flight; teams head-major, so one
+// head's 5.5 MB slice of the bf16 value map stays in L2. At the decoder
+// (7,200 (query, head) pairs) up to 8 channel groups split the samples and
+// a shuffle reduction sums them. Accumulation is fp32; each corner's
+// weight is the attention weight times the bilinear weight.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int MAX_LEVELS = 16;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace msda;
 
-struct Levels {
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
+// one sample's window as the forward reads it: corner rows and weights
+// (attention weight x bilinear weight)
+struct __align__(16) FwdSample {
+  int pix[4];
+  float w[4];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T, int TPG, int CPT>
+template <typename T, int SPLIT, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 msda_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, float* __restrict__ out,
-                Levels lv, int s, int m, int d, int lq, int nlevels,
-                int npoints, long long groups) {
-  const int lane = threadIdx.x % TPG;
-  const long long g =
-      (long long)blockIdx.x * (NTHREADS / TPG) + threadIdx.x / TPG;
-  // lanes past the last group still take part in the shuffles
-  const bool active = g < groups;
-  const long long gg = active ? g : 0;  // ((b * Lq) + q) * M + head
-  const int head = (int)(gg % m);
-  const long long b = gg / m / lq;
+                Levels lv, int b, int s, int m, int d, int lq, int nlevels,
+                int npoints, int team_shift, int g, long long teams) {
+  __shared__ FwdSample shared[MAX_TEAMS * CHUNK];
+  const Team t = locate(team_shift, teams, b, lq, m, true);
+  const int tsize = 1 << team_shift;
+  const int ci = t.lane & (g - 1);   // channel group lane
+  const int k = t.lane / g;          // which of the SPLIT groups
+  const int c0 = ci * 8;
+  const int nch = d - c0;            // channels this lane holds (> 8: 8)
   const int lp = nlevels * npoints;
-  const float* loc_g = loc + gg * lp * 2;
-  const float* aw_g = aw + gg * lp;
+  const float* loc_g = loc + t.gq * lp * 2;
+  const float* aw_g = aw + t.gq * lp;
   const size_t row = (size_t)m * d;  // elements between neighbouring pixels
-  const T* val_b = value + (size_t)b * s * row + (size_t)head * d;
+  const T* val_b = value + (size_t)t.b * s * row + (size_t)t.head * d + c0;
+  FwdSample* sh = shared + t.slot * CHUNK;
 
-  float acc[CPT];
+  float acc[8];
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) acc[k] = 0.f;
+  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
 
-  for (int l = 0; l < nlevels; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l];
-    const float hf = (float)hl, wf = (float)wl;
-    const T* val_l = val_b + (size_t)lv.start[l] * row;
-    for (int p0 = 0; p0 < npoints; p0 += TPG) {
-      const int i = l * npoints + p0 + lane;
-      float lx = 0.f, ly = 0.f, a = 0.f;
-      if (active && p0 + lane < npoints) {
-        lx = loc_g[2 * i];
-        ly = loc_g[2 * i + 1];
-        a = aw_g[i];
+  for (int i0 = 0; i0 < lp; i0 += CHUNK) {
+    for (int j = t.lane; j < CHUNK; j += tsize) {
+      const int i = i0 + j;
+      FwdSample smp;
+      float wb[4], fx, fy;
+      int x0, y0;
+      if (t.active && i < lp) {
+        const int l = i / npoints;
+        window<false>(loc_g[2 * i], loc_g[2 * i + 1], lv.h[l], lv.w[l],
+                      lv.start[l], smp.pix, wb, fx, fy, x0, y0);
+        const float a = aw_g[i];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) smp.w[c] = a * wb[c];
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) smp.pix[c] = -1, smp.w[c] = 0.f;
       }
-      const int n = min(TPG, npoints - p0);
-      for (int j = 0; j < n; ++j) {
-        const float sx = __shfl_sync(FULL, lx, j, TPG);
-        const float sy = __shfl_sync(FULL, ly, j, TPG);
-        const float sa = __shfl_sync(FULL, a, j, TPG);
-        // rounded as the plain version's two elementwise ops, never fused
-        // into one multiply-add: the same cell for a location on an edge
-        // (msda_bwd.cu, whose location gradient jumps there, does the same)
-        const float x = __fsub_rn(__fmul_rn(sx, wf), 0.5f);
-        const float y = __fsub_rn(__fmul_rn(sy, hf), 0.5f);
-        // all four corners outside the map (also catches NaN)
-        if (!(x > -1.f && x < wf && y > -1.f && y < hf)) continue;
-        const float x0f = floorf(x), y0f = floorf(y);
-        const float fx = x - x0f, fy = y - y0f;
-        const int x0 = (int)x0f, y0 = (int)y0f;
-        const bool l0 = x0 >= 0, r1 = x0 + 1 < wl;
-        const bool t0 = y0 >= 0, b1 = y0 + 1 < hl;
-        const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-        const float w10 = fy * (1.f - fx), w11 = fy * fx;
-        const T* p00 = val_l + ((long long)y0 * wl + x0) * (long long)row;
+      sh[j] = smp;
+    }
+    __syncwarp();
+    const int n = min(CHUNK, lp - i0);
 #pragma unroll
-        for (int k = 0; k < CPT; ++k) {
-          const int c = lane + k * TPG;
-          if (c < d) {
-            float v = 0.f;
-            if (t0 && l0) v += w00 * to_f(p00[c]);
-            if (t0 && r1) v += w01 * to_f(p00[row + c]);
-            if (b1 && l0) v += w10 * to_f(p00[(size_t)wl * row + c]);
-            if (b1 && r1) v += w11 * to_f(p00[((size_t)wl + 1) * row + c]);
-            acc[k] += sa * v;
+    for (int jj = 0; jj < CHUNK / SPLIT; ++jj) {
+      const int j = jj * SPLIT + k;
+      if (j < n && nch > 0) {
+        const FwdSample smp = sh[j];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (smp.pix[c] >= 0) {
+            float v[8];
+            load8<VEC>(val_b + (size_t)smp.pix[c] * row, nch, v);
+#pragma unroll
+            for (int q = 0; q < 8; ++q) acc[q] += smp.w[c] * v[q];
           }
         }
       }
     }
+    __syncwarp();
   }
-  if (!active) return;
+  // sum the SPLIT groups' partial sums (lanes g, 2g, ... apart in the team)
+  for (int off = g; off < tsize; off <<= 1) {
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = lane + k * TPG;
-    if (c < d) out[gg * d + c] = acc[k];
+    for (int q = 0; q < 8; ++q) acc[q] += __shfl_xor_sync(FULL, acc[q], off);
+  }
+  if (!t.active || k != 0 || nch <= 0) return;
+  float* o = out + t.gq * d + c0;
+  if (VEC) {
+    reinterpret_cast<float4*>(o)[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    reinterpret_cast<float4*>(o)[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < nch) o[q] = acc[q];
   }
 }
 
-template <typename T, int TPG, int CPT>
+template <typename T, int SPLIT, bool VEC>
 cudaError_t launch(const void* value, const float* loc, const float* aw,
                    float* out, const Levels& lv, int b, int s, int m, int d,
-                   int lq, int nlevels, int npoints, cudaStream_t stream) {
-  const long long groups = (long long)b * lq * m;
-  const long long per_block = NTHREADS / TPG;
-  const long long blocks = (groups + per_block - 1) / per_block;
+                   int lq, int nlevels, int npoints, int g,
+                   cudaStream_t stream) {
+  const long long teams = (long long)b * lq * m;
+  const int team_shift = log2i(g * SPLIT);
+  const long long per_block = NTHREADS >> team_shift;
+  const long long blocks = (teams + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  msda_fwd_kernel<T, TPG, CPT><<<(unsigned)blocks, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(value), loc, aw, out, lv, s, m, d, lq, nlevels,
-      npoints, groups);
+  msda_fwd_kernel<T, SPLIT, VEC><<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+      static_cast<const T*>(value), loc, aw, out, lv, b, s, m, d, lq, nlevels,
+      npoints, team_shift, g, teams);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* value, const float* loc, const float* aw,
-                       float* out, const Levels& lv, int b, int s, int m,
-                       int d, int lq, int nlevels, int npoints,
-                       cudaStream_t stream) {
-#define MSDA_CASE(DMAX, TPG, CPT)                                       \
-  if (d <= DMAX)                                                        \
-    return launch<T, TPG, CPT>(value, loc, aw, out, lv, b, s, m, d, lq, \
-                               nlevels, npoints, stream);
-  MSDA_CASE(8, 8, 1)
-  MSDA_CASE(16, 16, 1)
-  MSDA_CASE(32, 32, 1)
-  MSDA_CASE(64, 32, 2)
-  MSDA_CASE(96, 32, 3)
-  MSDA_CASE(128, 32, 4)
-#undef MSDA_CASE
+template <typename T, bool VEC>
+cudaError_t dispatch_split(const void* value, const float* loc,
+                           const float* aw, float* out, const Levels& lv,
+                           int b, int s, int m, int d, int lq, int nlevels,
+                           int npoints, cudaStream_t stream) {
+  const int g = group_lanes(d);
+  const int split = pick_split((long long)b * lq * m, g);
+#define MSDA_SPLIT(N)                                                       \
+  if (split == N)                                                           \
+    return launch<T, N, VEC>(value, loc, aw, out, lv, b, s, m, d, lq,       \
+                             nlevels, npoints, g, stream);
+  MSDA_SPLIT(1)
+  MSDA_SPLIT(2)
+  MSDA_SPLIT(4)
+  MSDA_SPLIT(8)
+#undef MSDA_SPLIT
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch(const void* value, const float* loc, const float* aw,
+                     float* out, const Levels& lv, int b, int s, int m, int d,
+                     int lq, int nlevels, int npoints, cudaStream_t stream) {
+  // 16-byte channel loads and stores: whole 8-channel groups, aligned rows
+  const bool vec = d % 8 == 0 && (uintptr_t)value % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  if (vec)
+    return dispatch_split<T, true>(value, loc, aw, out, lv, b, s, m, d, lq,
+                                   nlevels, npoints, stream);
+  return dispatch_split<T, false>(value, loc, aw, out, lv, b, s, m, d, lq,
+                                  nlevels, npoints, stream);
 }
 
 }  // namespace
 
 // levels: host array [nlevels][3] of (H, W, first row in S). dtype of value:
-// 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch (0 on
-// success); the launch does not synchronise.
+// 0 = float32, 1 = bfloat16. Any D <= 128 (D a multiple of 8 takes the
+// 16-byte loads). Returns the cudaError_t of the launch (0 on success); the
+// launch does not synchronise.
 extern "C" int fo1_msda_fwd(const void* value, const void* loc,
                             const void* aw, void* out, const int* levels,
                             int b, int s, int m, int d, int lq, int nlevels,
@@ -174,25 +188,17 @@ extern "C" int fo1_msda_fwd(const void* value, const void* loc,
   if (b <= 0 || s <= 0 || m <= 0 || d <= 0 || d > 128 || lq <= 0 ||
       nlevels <= 0 || nlevels > MAX_LEVELS || npoints <= 0)
     return (int)cudaErrorInvalidValue;
-  Levels lv = {};
-  for (int l = 0; l < nlevels; ++l) {
-    const int h = levels[3 * l], w = levels[3 * l + 1];
-    const int start = levels[3 * l + 2];
-    if (h <= 0 || w <= 0 || start < 0 || (long long)start + (long long)h * w > s)
-      return (int)cudaErrorInvalidValue;
-    lv.h[l] = h;
-    lv.w[l] = w;
-    lv.start[l] = start;
-  }
+  Levels lv;
+  if (!read_levels(levels, nlevels, s, lv)) return (int)cudaErrorInvalidValue;
   const float* lf = static_cast<const float*>(loc);
   const float* af = static_cast<const float*>(aw);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(value, lf, af, of, lv, b, s, m, d, lq,
-                                  nlevels, npoints, st);
+    return (int)dispatch<float>(value, lf, af, of, lv, b, s, m, d, lq,
+                                nlevels, npoints, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(value, lf, af, of, lv, b, s, m, d,
-                                          lq, nlevels, npoints, st);
+    return (int)dispatch<__nv_bfloat16>(value, lf, af, of, lv, b, s, m, d, lq,
+                                        nlevels, npoints, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,216 +23,264 @@
 //
 // What bounds it on the card: the function moves value, g, locations and
 // weights once and writes the three gradients once (~0.5 GB at the UPN
-// encoder's shape, Lq = S = 85,932, M = 8, L = 5, P = 4, D = 32, in
-// bfloat16, ~0.15 ms at 3.35 TB/s), but the scatter into grad_value is
-// B*Lq*M*L*P*4*D float32 atomic adds (~1.76e9 at that shape) into an 88 MB
-// map that mostly stays in the 50 MB L2; the atomics, not the bytes, are
-// expected to set the time.
+// encoder's shape, Lq = S = 85,932, M = 8, L = 5, P = 4, D = 32, in bfloat16,
+// ~0.15 ms at 3.35 TB/s), but the scatter into grad_value adds B*Lq*M*L*P*4*D
+// float32 values (~1.76e9 at that shape) into an 88 MB map. The reductions set
+// the time: at a UPN request's encoder inputs the kernel without them runs in
+// a third of the time, and those into the three coarse levels cost most of the
+// rest, their few pixels each taking hundreds to thousands of adds that queue
+// up in L2 (PERF.md). The earlier design issued each add as a scalar atomic,
+// from a warp per (batch, query, head) whose 32 lanes all repeated the
+// coordinate arithmetic.
 //
-// Design: the forward's thread map and coordinate arithmetic
-// (csrc/msda.cu). One group of TPG lanes per (batch, query, head), lane =
-// channel (D = 8, 16 pack 4 or 2 groups into a warp; D <= 128 gives each
-// lane up to 4 channels); g's channels stay in registers for the whole
-// group. Per level the lanes load P (location, weight) triples side by side
-// and pass each to all lanes with a warp shuffle. Per sample each lane reads its channels of the four corners,
-// adds a * w_c * g to them with float32 atomics (neighbouring lanes hit
-// neighbouring addresses), and keeps its share of grad_aw and the two
-// location sums; shuffles reduce those three over the group, and one lane
-// writes them: each of those slots belongs to exactly one group, so they
-// need no atomics. The TPU kernel's quad packing, supergroup one-hot
-// scatter matmuls and VMEM bands exist because the TPU has no fast gather or
-// scatter; none of it is carried over. Sums in grad_value land in whatever
-// order the atomics arrive, so its low bits differ from run to run.
+// Design (the thread map and windows of msda_common.cuh, as the forward): a
+// team of 4 lanes per (batch, query, head) at D = 32, each lane 8 channels of
+// g in registers; each sample's window computed once per team and shared
+// through shared memory; the heads of a query side by side, which spreads the
+// coarse levels' reductions over 8 rows (msda_common.cuh). A lane's 8 channels
+// are two quads 4*G channels apart (lane i of the group: channels 4i..4i+3 and
+// 4G+4i..), so the group's first reduction covers one contiguous 64 bytes of a
+// corner's float32 row and its second the next 64: whole 32-byte sectors,
+// where 8 contiguous channels a lane left every 16-byte reduction half a
+// sector (1.5x slower, PERF.md). Per corner on the map a lane reads its two
+// value quads and adds a * w_c * g to its two gradient quads with two vector
+// reductions (`atomicAdd` on float4, `red.global.add.v4.f32` on sm_90): a
+// quarter of the scalar design's atomic instructions. A corner of bilinear
+// weight 0 (a sample on a cell edge) adds exactly 0 and issues none. grad_aw
+// and grad_loc are reduced over the channel lanes with shuffles and written
+// without atomics: each slot belongs to one team. The accumulation stays
+// float32 (no bf16 atomics: the JAX backward sums in f32). Sums in grad_value
+// land in whatever order the atomics arrive, so its low bits differ from run
+// to run. Tried and dropped (PERF.md): shared-memory windows of the gradient
+// map on the coarse levels (contended shared-memory atomics, 1.2-6x slower);
+// scattering the coarse levels into copies of their maps chosen by query,
+// summed by a second kernel (7% faster at the UPN encoder, for a second launch
+// and a scratch of up to 24 MB each call).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int MAX_LEVELS = 16;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace msda;
 
-struct Levels {
-  int h[MAX_LEVELS];
-  int w[MAX_LEVELS];
-  int start[MAX_LEVELS];
+// one sample's window as the backward reads it
+struct __align__(16) BwdSample {
+  int pix[4];
+  float w[4];    // bilinear weights
+  float a;       // attention weight
+  float fx, fy;  // fractions of the window
+  float scale_x; // the level's W (grad_loc_x = a * px * W)
+  float scale_y; // the level's H
+  int pad[3];
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// A lane's 8 channels. VEC: two quads, at ca and cb (va, vb: inside D),
+// loaded with 8- (bf16) or 16-byte (f32) loads and added with two float4
+// reductions; else the 8 channels from ca on, nch of them, scalar.
+struct Chans {
+  int ca, cb;
+  bool va, vb;
+  int nch;
+};
 
-template <int TPG>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = TPG / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(FULL, v, off, TPG);
-  return v;
+template <bool VEC, typename T>
+__device__ __forceinline__ void load_ch(const T* p, const Chans& c,
+                                        float (&v)[8]) {
+  if (VEC) {
+    if (c.va) load4(p + c.ca, v); else v[0] = v[1] = v[2] = v[3] = 0.f;
+    if (c.vb) load4(p + c.cb, v + 4); else v[4] = v[5] = v[6] = v[7] = 0.f;
+  } else {
+    load8<false>(p + c.ca, c.nch, v);
+  }
 }
 
-template <typename T, int TPG, int CPT>
+template <bool VEC>
+__device__ __forceinline__ void red_ch(float* p, const Chans& c,
+                                       const float (&v)[8]) {
+  if (VEC) {
+    if (c.va)
+      atomicAdd(reinterpret_cast<float4*>(p + c.ca),
+                make_float4(v[0], v[1], v[2], v[3]));
+    if (c.vb)
+      atomicAdd(reinterpret_cast<float4*>(p + c.cb),
+                make_float4(v[4], v[5], v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (k < c.nch) atomicAdd(p + c.ca + k, v[k]);
+  }
+}
+
+__device__ __forceinline__ BwdSample sample(const float* loc_g,
+                                            const float* aw_g, const Levels& lv,
+                                            int i, int npoints, bool on) {
+  BwdSample smp;
+  if (on) {
+    const int l = i / npoints;
+    int x0, y0;
+    window<true>(loc_g[2 * i], loc_g[2 * i + 1], lv.h[l], lv.w[l],
+                 lv.start[l], smp.pix, smp.w, smp.fx, smp.fy, x0, y0);
+    smp.a = aw_g[i];
+    smp.scale_x = (float)lv.w[l];
+    smp.scale_y = (float)lv.h[l];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) smp.pix[c] = -1, smp.w[c] = 0.f;
+    smp.a = smp.fx = smp.fy = smp.scale_x = smp.scale_y = 0.f;
+  }
+  return smp;
+}
+
+template <typename T, int SPLIT, bool VEC>
 __global__ void __launch_bounds__(NTHREADS)
 msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, const float* __restrict__ gout,
                 float* __restrict__ gvalue, float* __restrict__ gloc,
-                float* __restrict__ gaw, Levels lv, int s, int m, int d,
-                int lq, int nlevels, int npoints, long long groups) {
-  const int lane = threadIdx.x % TPG;
-  const long long g =
-      (long long)blockIdx.x * (NTHREADS / TPG) + threadIdx.x / TPG;
-  // lanes past the last group still take part in the shuffles
-  const bool active = g < groups;
-  const long long gg = active ? g : 0;  // ((b * Lq) + q) * M + head
-  const int head = (int)(gg % m);
-  const long long b = gg / m / lq;
+                float* __restrict__ gaw, Levels lv, int b, int s, int m,
+                int d, int lq, int nlevels, int npoints, int team_shift,
+                int g, long long teams) {
+  __shared__ BwdSample shared[MAX_TEAMS * CHUNK];
+  const Team t = locate(team_shift, teams, b, lq, m, false);
+  const int tsize = 1 << team_shift;
+  const int ci = t.lane & (g - 1);
+  const int k = t.lane / g;
+  Chans ch;
+  ch.ca = VEC ? 4 * ci : 8 * ci;
+  ch.cb = VEC ? 4 * (g + ci) : 8 * ci + 4;
+  ch.va = ch.ca < d;
+  ch.vb = ch.cb < d;
+  ch.nch = d - ch.ca;
+  const bool any = ch.va;  // the lane holds channels
   const int lp = nlevels * npoints;
-  const float* loc_g = loc + gg * lp * 2;
-  const float* aw_g = aw + gg * lp;
-  float* gloc_g = gloc + gg * lp * 2;
-  float* gaw_g = gaw + gg * lp;
-  const size_t row = (size_t)m * d;  // elements between neighbouring pixels
-  const size_t off_b = (size_t)b * s * row + (size_t)head * d;
+  const float* loc_g = loc + t.gq * lp * 2;
+  const float* aw_g = aw + t.gq * lp;
+  float* gloc_g = gloc + t.gq * lp * 2;
+  float* gaw_g = gaw + t.gq * lp;
+  const size_t row = (size_t)m * d;
+  const size_t off_b = (size_t)t.b * s * row + (size_t)t.head * d;
+  BwdSample* sh = shared + t.slot * CHUNK;
 
-  float go[CPT];
+  float go[8];
+  if (t.active && any) {
+    load_ch<VEC>(gout + t.gq * d, ch, go);
+  } else {
 #pragma unroll
-  for (int k = 0; k < CPT; ++k) {
-    const int c = lane + k * TPG;
-    go[k] = (active && c < d) ? gout[gg * d + c] : 0.f;
+    for (int q = 0; q < 8; ++q) go[q] = 0.f;
   }
 
-  for (int l = 0; l < nlevels; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l];
-    const float hf = (float)hl, wf = (float)wl;
-    const T* val_l = value + off_b + (size_t)lv.start[l] * row;
-    float* gval_l = gvalue + off_b + (size_t)lv.start[l] * row;
-    for (int p0 = 0; p0 < npoints; p0 += TPG) {
-      const int i = l * npoints + p0 + lane;
-      float lx = 0.f, ly = 0.f, a = 0.f;
-      if (active && p0 + lane < npoints) {
-        lx = loc_g[2 * i];
-        ly = loc_g[2 * i + 1];
-        a = aw_g[i];
-      }
-      const int n = min(TPG, npoints - p0);
-      for (int j = 0; j < n; ++j) {
-        const float sx = __shfl_sync(FULL, lx, j, TPG);
-        const float sy = __shfl_sync(FULL, ly, j, TPG);
-        const float sa = __shfl_sync(FULL, a, j, TPG);
-        // a product and a difference rounded apart, as the plain version's
-        // two elementwise ops (`loc * W - 0.5`); a fused multiply-add can
-        // round a location on a cell edge (UPN's encoder samples sit on
-        // them) to the other side, where the location gradient jumps
-        const float x = __fsub_rn(__fmul_rn(sx, wf), 0.5f);
-        const float y = __fsub_rn(__fmul_rn(sy, hf), 0.5f);
-        // the JAX `ok` window test (false for NaN); no early exit, since
-        // every lane of the warp must reach the shuffles below
-        const bool ok = active && x >= -1.f && x < wf && y >= -1.f && y < hf;
-        float fx = 0.f, fy = 0.f;
-        bool c00 = false, c01 = false, c10 = false, c11 = false;
-        long long base = 0;
-        if (ok) {
-          const float x0f = floorf(x), y0f = floorf(y);
-          fx = x - x0f;
-          fy = y - y0f;
-          const int x0 = (int)x0f, y0 = (int)y0f;
-          const bool l0 = x0 >= 0, r1 = x0 + 1 < wl;
-          const bool t0 = y0 >= 0, b1 = y0 + 1 < hl;
-          c00 = t0 && l0;
-          c01 = t0 && r1;
-          c10 = b1 && l0;
-          c11 = b1 && r1;
-          base = ((long long)y0 * wl + x0) * (long long)row;
-        }
-        const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-        const float w10 = fy * (1.f - fx), w11 = fy * fx;
-        const long long o01 = (long long)row;
-        const long long o10 = (long long)wl * row;
-        const long long o11 = o10 + (long long)row;
-        float s00 = 0.f, s01 = 0.f, s10 = 0.f, s11 = 0.f;
+  for (int i0 = 0; i0 < lp; i0 += CHUNK) {
+    for (int j = t.lane; j < CHUNK; j += tsize)
+      sh[j] = sample(loc_g, aw_g, lv, i0 + j, npoints,
+                     t.active && i0 + j < lp);
+    __syncwarp();
+    const int n = min(CHUNK, lp - i0);
 #pragma unroll
-        for (int k = 0; k < CPT; ++k) {
-          const int c = lane + k * TPG;
-          if (c < d) {
-            const float gk = go[k];
-            const float ag = sa * gk;
-            const long long o = base + c;
-            if (c00) {
-              s00 += gk * to_f(val_l[o]);
-              atomicAdd(gval_l + o, ag * w00);
+    for (int jj = 0; jj < CHUNK / SPLIT; ++jj) {
+      const int j = jj * SPLIT + k;
+      const bool mine = j < n;
+      const BwdSample smp = sh[mine ? j : 0];
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+      if (mine && any) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (smp.pix[c] >= 0) {
+            const size_t o = off_b + (size_t)smp.pix[c] * row;
+            float v[8], add[8];
+            load_ch<VEC>(value + o, ch, v);
+            const float aw_c = smp.a * smp.w[c];
+#pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              sc[c] += go[q] * v[q];
+              add[q] = aw_c * go[q];
             }
-            if (c01) {
-              s01 += gk * to_f(val_l[o + o01]);
-              atomicAdd(gval_l + o + o01, ag * w01);
-            }
-            if (c10) {
-              s10 += gk * to_f(val_l[o + o10]);
-              atomicAdd(gval_l + o + o10, ag * w10);
-            }
-            if (c11) {
-              s11 += gk * to_f(val_l[o + o11]);
-              atomicAdd(gval_l + o + o11, ag * w11);
-            }
+            // a corner of bilinear weight 0 (a sample on a cell edge)
+            // adds exactly 0: no reduction
+            if (smp.w[c] != 0.f) red_ch<VEC>(gvalue + o, ch, add);
           }
         }
-        const float pa = group_sum<TPG>(w00 * s00 + w01 * s01 + w10 * s10 +
-                                        w11 * s11);
-        const float px = group_sum<TPG>((1.f - fy) * (s01 - s00) +
-                                        fy * (s11 - s10));
-        const float py = group_sum<TPG>((1.f - fx) * (s10 - s00) +
-                                        fx * (s11 - s01));
-        if (active && lane == j) {
-          const int o = l * npoints + p0 + j;
-          gaw_g[o] = pa;
-          gloc_g[2 * o] = sa * px * wf;
-          gloc_g[2 * o + 1] = sa * py * hf;
-        }
+      }
+      float pa = smp.w[0] * sc[0] + smp.w[1] * sc[1] + smp.w[2] * sc[2] +
+                 smp.w[3] * sc[3];
+      float px = (1.f - smp.fy) * (sc[1] - sc[0]) + smp.fy * (sc[3] - sc[2]);
+      float py = (1.f - smp.fx) * (sc[2] - sc[0]) + smp.fx * (sc[3] - sc[1]);
+      // over the channel lanes of this group (every lane of the warp takes
+      // part: the shuffles sit outside the per-lane conditions)
+      for (int off = 1; off < g; off <<= 1) {
+        pa += __shfl_xor_sync(FULL, pa, off);
+        px += __shfl_xor_sync(FULL, px, off);
+        py += __shfl_xor_sync(FULL, py, off);
+      }
+      if (t.active && mine && ci == 0) {
+        const int i = i0 + j;
+        gaw_g[i] = pa;
+        gloc_g[2 * i] = smp.a * px * smp.scale_x;
+        gloc_g[2 * i + 1] = smp.a * py * smp.scale_y;
       }
     }
+    __syncwarp();
   }
 }
 
-template <typename T, int TPG, int CPT>
+template <typename T, int SPLIT, bool VEC>
 cudaError_t launch(const void* value, const float* loc, const float* aw,
                    const float* gout, float* gvalue, float* gloc, float* gaw,
                    const Levels& lv, int b, int s, int m, int d, int lq,
-                   int nlevels, int npoints, cudaStream_t stream) {
-  const long long groups = (long long)b * lq * m;
-  const long long per_block = NTHREADS / TPG;
-  const long long blocks = (groups + per_block - 1) / per_block;
+                   int nlevels, int npoints, int g, cudaStream_t stream) {
+  const long long teams = (long long)b * lq * m;
+  const int team_shift = log2i(g * SPLIT);
+  const long long per_block = NTHREADS >> team_shift;
+  const long long blocks = (teams + per_block - 1) / per_block;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  msda_bwd_kernel<T, TPG, CPT><<<(unsigned)blocks, NTHREADS, 0, stream>>>(
-      static_cast<const T*>(value), loc, aw, gout, gvalue, gloc, gaw, lv, s,
-      m, d, lq, nlevels, npoints, groups);
+  msda_bwd_kernel<T, SPLIT, VEC><<<(unsigned)blocks, NTHREADS, 0, stream>>>(
+      static_cast<const T*>(value), loc, aw, gout, gvalue, gloc, gaw, lv, b,
+      s, m, d, lq, nlevels, npoints, team_shift, g, teams);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* value, const float* loc, const float* aw,
-                       const float* gout, float* gvalue, float* gloc,
-                       float* gaw, const Levels& lv, int b, int s, int m,
-                       int d, int lq, int nlevels, int npoints,
-                       cudaStream_t stream) {
-#define MSDA_CASE(DMAX, TPG, CPT)                                        \
-  if (d <= DMAX)                                                         \
-    return launch<T, TPG, CPT>(value, loc, aw, gout, gvalue, gloc, gaw, \
-                               lv, b, s, m, d, lq, nlevels, npoints,     \
-                               stream);
-  MSDA_CASE(8, 8, 1)
-  MSDA_CASE(16, 16, 1)
-  MSDA_CASE(32, 32, 1)
-  MSDA_CASE(64, 32, 2)
-  MSDA_CASE(96, 32, 3)
-  MSDA_CASE(128, 32, 4)
-#undef MSDA_CASE
+template <typename T, bool VEC>
+cudaError_t dispatch_split(const void* value, const float* loc,
+                           const float* aw, const float* gout, float* gvalue,
+                           float* gloc, float* gaw, const Levels& lv, int b,
+                           int s, int m, int d, int lq, int nlevels,
+                           int npoints, cudaStream_t stream) {
+  const int g = group_lanes(d);
+  const int split = pick_split((long long)b * lq * m, g);
+#define MSDA_SPLIT(N)                                                    \
+  if (split == N)                                                        \
+    return launch<T, N, VEC>(value, loc, aw, gout, gvalue, gloc, gaw, lv, \
+                             b, s, m, d, lq, nlevels, npoints, g, stream);
+  MSDA_SPLIT(1)
+  MSDA_SPLIT(2)
+  MSDA_SPLIT(4)
+  MSDA_SPLIT(8)
+#undef MSDA_SPLIT
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch(const void* value, const float* loc, const float* aw,
+                     const float* gout, float* gvalue, float* gloc,
+                     float* gaw, const Levels& lv, int b, int s, int m,
+                     int d, int lq, int nlevels, int npoints,
+                     cudaStream_t stream) {
+  // 16-byte channel loads and vector reductions: whole 8-channel groups,
+  // aligned rows
+  const bool vec = d % 8 == 0 && (uintptr_t)value % 16 == 0 &&
+                   (uintptr_t)gout % 16 == 0 && (uintptr_t)gvalue % 16 == 0;
+  if (vec)
+    return dispatch_split<T, true>(value, loc, aw, gout, gvalue, gloc, gaw,
+                                   lv, b, s, m, d, lq, nlevels, npoints,
+                                   stream);
+  return dispatch_split<T, false>(value, loc, aw, gout, gvalue, gloc, gaw,
+                                  lv, b, s, m, d, lq, nlevels, npoints,
+                                  stream);
 }
 
 }  // namespace
 
 // levels: host array [nlevels][3] of (H, W, first row in S). dtype of value:
 // 0 = float32, 1 = bfloat16. gvalue must be zeroed float32 [B, S, M, D].
-// Returns the cudaError_t of the launch (0 on success); the launch does not
+// Returns the cudaError_t of the launch (0 on success); it does not
 // synchronise.
 extern "C" int fo1_msda_bwd(const void* value, const void* loc,
                             const void* aw, const void* gout, void* gvalue,
@@ -242,16 +290,8 @@ extern "C" int fo1_msda_bwd(const void* value, const void* loc,
   if (b <= 0 || s <= 0 || m <= 0 || d <= 0 || d > 128 || lq <= 0 ||
       nlevels <= 0 || nlevels > MAX_LEVELS || npoints <= 0)
     return (int)cudaErrorInvalidValue;
-  Levels lv = {};
-  for (int l = 0; l < nlevels; ++l) {
-    const int h = levels[3 * l], w = levels[3 * l + 1];
-    const int start = levels[3 * l + 2];
-    if (h <= 0 || w <= 0 || start < 0 || (long long)start + (long long)h * w > s)
-      return (int)cudaErrorInvalidValue;
-    lv.h[l] = h;
-    lv.w[l] = w;
-    lv.start[l] = start;
-  }
+  Levels lv;
+  if (!read_levels(levels, nlevels, s, lv)) return (int)cudaErrorInvalidValue;
   const float* lf = static_cast<const float*>(loc);
   const float* af = static_cast<const float*>(aw);
   const float* gf = static_cast<const float*>(gout);
@@ -260,11 +300,10 @@ extern "C" int fo1_msda_bwd(const void* value, const void* loc,
   float* ga = static_cast<float*>(gaw);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(value, lf, af, gf, gv, gl, ga, lv, b, s, m,
-                                  d, lq, nlevels, npoints, st);
+    return (int)dispatch<float>(value, lf, af, gf, gv, gl, ga, lv, b,
+                                s, m, d, lq, nlevels, npoints, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(value, lf, af, gf, gv, gl, ga, lv,
-                                          b, s, m, d, lq, nlevels, npoints,
-                                          st);
+    return (int)dispatch<__nv_bfloat16>(value, lf, af, gf, gv, gl, ga, lv, b,
+                                        s, m, d, lq, nlevels, npoints, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -183,8 +183,8 @@ def ms_deform_attn_core_backward(value, spatial_shapes, sampling_locations,
     [B, S, M, D] in value's dtype, grad_loc [B, Lq, M, L, P, 2] float32,
     grad_aw [B, Lq, M, L, P] float32). CUDA tensors launch the hand-written
     kernel (`csrc/msda_bwd.cu`), which sums grad_value with float32 atomics
-    into a zeroed float32 map and casts it to value's dtype after; CPU
-    tensors take `ms_deform_attn_core_backward_reference`."""
+    into a zeroed float32 map, cast to value's dtype after; CPU tensors
+    take `ms_deform_attn_core_backward_reference`."""
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, m, d = value.shape
