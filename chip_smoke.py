@@ -78,7 +78,9 @@ Phases (any failure exits non-zero and prints no result line):
      (`quant.quantize_model` on fresh random weights): grounding requests
      with the 7 demo boxes and 32 tokens, stage times, quantized bytes,
      peak memory, kernel launches and routes per request (the prefill on
-     the TMA tiles, the decode steps streaming); in the int4 and int4-mlp
+     the TMA tiles, the decode steps streaming; each request's launches
+     the trunk's int4 modules once per forward the device ran, the first
+     request's graph capture included); in the int4 and int4-mlp
      modes the first request's region tokens and prefill logits compared
      between the kernel path and the plain path;
  13. the MSDA backward vs its plain version (autograd of the plain core):
@@ -129,13 +131,45 @@ Phases (any failure exits non-zero and prints no result line):
      geometry (600 steps of 1024 queries x 4 slots, mma.sync bf16): row
      tiles of 64-512, the weight / same / k512 variants, worst row relative
      L2 <= 1e-4 against the plain version, ms, ns a 64-query slot visit and
-     TFLOP/s.
+     TFLOP/s;
+ 22. (after phase 5) FO1Config.tiny() f32 with shared weights: generate_batch
+     on a same-geometry batch (stacked) and a mixed one (per item), top-p,
+     the staged single request, ServingPipeline, ContinuousServingPipeline
+     and UPN -> FO1 (tiny UPN): the card (kernels, decode from CUDA graphs)
+     equal to the CPU (plain versions), graph decode equal to eager decode
+     on the card (tokens and step counts), and launch_batch enqueued with
+     no host synchronisation (sync debug mode "error");
+ 23. (after phase 8) the phase-6 3B model and phase-7 UPN: decode ms a step at
+     B = 1 and 8, eager and from graphs, with the graph's memory; the staged
+     request's decode stage eager and graphed; two encodes of a batch of 8
+     demo requests bit-equal; the batch (ms, tokens/s, peak); each with graph decode equal to eager decode (tokens
+     and step counts); each row's prefill logits against the request alone: on
+     the same embeddings (the batched prefill, relative L2 <= 2e-2), and end to
+     end no farther (x 1.25) from an f32 copy of the weights than the request
+     alone, token agreement printed; the flash kernel on the batch's own right-
+     padded layer-0 prefill against its plain version (row bound 2e-2);
+     ServingPipeline and ContinuousServingPipeline over 16 demo requests
+     (requests/s, device steps beside the batch-synchronous sum, retries 0) and
+     UPN -> FO1 over 2 images; flash and MSDA launches counted over each of the
+     four main-path runs (batch, two pipelines, UPN -> FO1), zeroed just before
+     it and read just after;
+ 24. (after phase 10) the int4 matmul on the four trunk shapes and the
+     fused SwiGLU at D = 2048, I = 11008, M = 8, captured in a CUDA graph
+     and replayed: bit-equal to eager, streaming route, and within the
+     bf16 bounds of the plain version;
+ 25. (after phase 12) the 3B model in the int4 and int4-mlp modes: the
+     first demo request alone and a batch of 8 (prefill on the TMA tiles,
+     decode streaming from the decode graph), graph decode equal to eager
+     decode at B = 1 and 8, the batch's launches the int4 modules once
+     per forward the device ran, and the decode ms a step at B = 8, eager
+     and from graphs.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
 """
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -682,10 +716,13 @@ def phase_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, fa,
     for i, what in enumerate(("region tokens", "prefill last-token logits")):
         got, ref = outs["kernel"][i], outs["plain"][i]
         err = (got - ref).abs().max().item()
+        rel = ((got.float() - ref.float()).norm()
+               / ref.float().norm()).item()
         bound = PATH_REL_TOL * max(1.0, ref.abs().max().item())
         sm.check(err <= bound, f"FO1 kernel path vs plain path, {what}: "
                  f"max_abs_err={err:.3e} (bound {bound:.3e} = "
-                 f"{PATH_REL_TOL:g} x max(1, max|plain|))")
+                 f"{PATH_REL_TOL:g} x max(1, max|plain|)); relative L2 "
+                 f"{rel:.3e}")
     return model, launches, per_request
 
 
@@ -1134,7 +1171,15 @@ def phase_tiny_quant(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
 
 def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                     quant, fa, i4, i4mlp, extract, mode, n_requests):
-    """FO1Config() bf16 in one serving mode on fresh random weights."""
+    """FO1Config() bf16 in one serving mode on fresh random weights. Each
+    request's int4 launches must be the trunk's int4 modules once per
+    forward: its prefill and every decode step the device ran (a capture's
+    eager warm-up and the steps of a graph's last replay after the end
+    included; the capture itself launches nothing)."""
+    from vlm_fo1_tpu_torch.models.llm import Int4MLP
+    from vlm_fo1_tpu_torch.nn import QLinear4
+    from vlm_fo1_tpu_torch.runtime.generate import DecodeProgram
+
     cfg = FO1Config()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1151,12 +1196,15 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
            f" {time.perf_counter() - t1:.1f} s, peak so far "
            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
     msgs = [_messages(100 + i, OD_template) for i in range(n_requests)]
+    per_forward = tuple(sum(isinstance(m, t) for m in model.text.modules())
+                        for t in (QLinear4, Int4MLP))
     i4.int4_matmul.launches = 0
     i4mlp.int4_mlp.launches = 0
     per_request = []
     for i, m in enumerate(msgs):
         before = (i4.int4_matmul.launches, i4mlp.int4_mlp.launches)
         routes0 = (dict(i4.int4_matmul.routes), dict(i4mlp.int4_mlp.routes))
+        steps0 = DecodeProgram.steps_run
         stage = {}
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1165,10 +1213,12 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         n = (i4.int4_matmul.launches - before[0],
              i4mlp.int4_mlp.launches - before[1])
+        forwards = 1 + DecodeProgram.steps_run - steps0
         routes = [{r: c[r] - c0[r] for r in c if c[r] != c0[r]} for c, c0 in
                   zip((i4.int4_matmul.routes, i4mlp.int4_mlp.routes), routes0)]
         per_request.append({"int4_matmul": n[0], "int4_mlp": n[1],
-                            "forwards": res.num_steps,
+                            "forwards": forwards,
+                            "num_steps": res.num_steps,
                             "routes_int4_matmul": routes[0],
                             "routes_int4_mlp": routes[1]})
         sm.log(f"FO1 {mode} request {i}: prompt {res.prompt_len} tokens, "
@@ -1176,9 +1226,10 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                f"{stage['encode']:.1f} ms, prefill {stage['prefill']:.1f} ms,"
                f" decode {stage['decode']:.1f} ms ({res.num_steps} tokens), "
                f"total {total_ms:.1f} ms, peak memory {peak_gb:.2f} GiB, "
-               f"launches int4_matmul {n[0]} ({n[0] / res.num_steps:.1f} per "
-               f"forward), int4_mlp {n[1]} ({n[1] / res.num_steps:.1f} per "
-               f"forward), routes {routes}, parsed boxes "
+               f"{forwards} trunk forwards on the device, launches "
+               f"int4_matmul {n[0]} ({n[0] / forwards:.2f} per forward), "
+               f"int4_mlp {n[1]} ({n[1] / forwards:.2f} per forward), "
+               f"routes {routes}, parsed boxes "
                f"{extract(res.text, DEMO_BOXES)}")
         # the prompt's prefill (M = prompt length) takes the TMA tiles, the
         # decode steps (M = 1) the streaming path, nothing the mma.sync tiles
@@ -1188,10 +1239,11 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                      and "fma" not in tiled,
                      f"FO1 {mode} request {i}: prefill on the TMA tiles, "
                      f"routes {tiled}")
-        want = {"int4": n[0] > 0, "int4-mlp": n[1] > 0}.get(mode, True)
-        sm.check(want and bool(np.isfinite(res.prefill_logits).all()),
+        want = tuple(c * forwards for c in per_forward)
+        sm.check(n == want and bool(np.isfinite(res.prefill_logits).all()),
                  f"FO1 {mode} request {i}: finite prefill logits, kernel "
-                 f"launches {n}")
+                 f"launches {n} == (int4 linears, int4 MLPs) {per_forward} "
+                 f"x {forwards} forwards {want}")
     launches = {"int4_matmul": i4.int4_matmul.launches,
                 "int4_mlp": i4mlp.int4_mlp.launches}
 
@@ -1862,6 +1914,611 @@ def phase_fo1_train(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
     return runs, paths, kernels[0]
 
 
+# ---------------------------------------------------- batched and serving
+
+SERVE_NEW = 32        # tokens per request in the 3B serving runs
+SERVE_BATCH = 8
+# a batched row's prefill logits against the same request alone on the
+# same embeddings (the trunk's prefill), relative L2
+ROW_REL_TOL = 2e-2
+# end to end (encode, splice, prefill) a bf16 row of the batch must be no
+# farther from an f32 copy of the weights than the request alone, x this:
+# the bf16 ViT alone sits ~2e-2 from f32 and B = 8 tiles its products
+# differently, so batched and alone part by ~3e-2 (PERF.md §6)
+F32_ANCHOR_RATIO = 1.25
+DECODE_C = 1792 + SERVE_NEW   # a demo prompt's bucket + 32 tokens
+
+
+def _tiny_requests(n, OD_template, sizes=((240, 320), (192, 256))):
+    """n grounding prompts on seeded images, alternating the geometries in
+    `sizes`, with 1..7 of the demo boxes scaled to the image."""
+    from PIL import Image
+
+    out = []
+    for i in range(n):
+        h, w = sizes[i % len(sizes)]
+        boxes = [[b[0] * w / 640, b[1] * h / 480, b[2] * w / 640,
+                  b[3] * h / 480] for b in DEMO_BOXES[:1 + i % 7]]
+        rng = np.random.default_rng(500 + i)
+        img = Image.fromarray(rng.integers(0, 256, (h, w, 3), np.uint8))
+        out.append(_messages(0, OD_template, boxes, img))
+    return out
+
+
+def _same_results(a, b):
+    return len(a) == len(b) and all(
+        np.array_equal(x.token_ids, y.token_ids)
+        and x.num_steps == y.num_steps for x, y in zip(a, b))
+
+
+def _tokens(results):
+    return [r.token_ids.tolist() for r in results]
+
+
+def phase_tiny_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
+                       OD_template, upn_mod, msda, serving):
+    """FO1Config.tiny() (untied head) f32 with shared weights: batched,
+    serving, continuous and UPN -> FO1 results on the card (kernels, decode
+    from CUDA graphs) equal to the CPU's (plain versions); graph decode
+    equal to eager decode on the card; launch_batch without a host wait."""
+    tiny = FO1Config.tiny()
+    cfg = dataclasses.replace(tiny, text=dataclasses.replace(
+        tiny.text, tie_word_embeddings=False))
+    tok = FallbackTokenizer()
+    cpu = FO1Model.random_init(cfg, seed=0, device="cpu", tokenizer=tok)
+    gpu = FO1Model(cfg, device="cuda", tokenizer=tok)
+    gpu.load_state_dict(cpu.state_dict())
+    reqs = _tiny_requests(10, OD_template)
+    same_geom = reqs[0::2]
+    batches = {"stacked": same_geom[:3], "per-item": reqs[:3]}
+
+    def graph_vs_eager(fn):
+        out = fn()
+        gpu.cuda_graphs = False
+        try:
+            eager = fn()
+        finally:
+            gpu.cuda_graphs = True
+        return out, eager
+
+    for name, batch in batches.items():
+        rc = cpu.generate_batch(batch, max_new_tokens=12)
+        rg, re = graph_vs_eager(
+            lambda: gpu.generate_batch(batch, max_new_tokens=12))
+        sm.check(_same_results(rc, rg) and _same_results(rg, re),
+                 f"tiny FO1 f32 generate_batch ({name}, B=3): card (graph) "
+                 f"== cpu {_same_results(rc, rg)}, graph == eager on the "
+                 f"card {_same_results(rg, re)}; steps "
+                 f"{[r.num_steps for r in rg]}, tokens {_tokens(rg)}")
+    tp = dict(max_new_tokens=12, temperature=0.8, top_p=0.9, seed=3)
+    a, b = graph_vs_eager(lambda: gpu.generate_batch(batches["stacked"],
+                                                     **tp))
+    sm.check(_same_results(a, b), f"tiny FO1 top-p (T=0.8, p=0.9, seed 3) "
+             f"generate_batch: graph == eager on the card: {_tokens(a)} vs "
+             f"{_tokens(b)}")
+    one_g, one_e = graph_vs_eager(
+        lambda: [gpu.generate(reqs[1], max_new_tokens=12, stage_ms={})])
+    sm.check(_same_results(one_g, one_e), "tiny FO1 staged single request "
+             "(B=1, no prompt pad): graph == eager on the card")
+
+    opts = serving.ServingOptions(batch_size=2, max_new_tokens=12)
+    pc, pg = (serving.ServingPipeline(m, opts) for m in (cpu, gpu))
+    rc, rg = pc.run(reqs[:6]), pg.run(reqs[:6])
+    sm.check(_same_results(rc, rg) and pg.stats["retries"] == 0
+             and pg.stats == pc.stats,
+             f"tiny ServingPipeline (grouped, device preproc, 6 requests, "
+             f"batch 2): card == cpu {_same_results(rc, rg)}, stats "
+             f"{pg.stats}")
+    copts = serving.ContinuousOptions(batch_size=2, chunk=3, refill_size=1,
+                                      max_new_tokens=12)
+    creqs = [{"messages": m, "max_new_tokens": 12 if i % 2 else 3}
+             for i, m in enumerate(same_geom)]
+    cc = serving.ContinuousServingPipeline(cpu, copts)
+    rc = cc.run(creqs)
+    cg, ce = (serving.ContinuousServingPipeline(gpu, copts)
+              for _ in range(2))
+    rg, re = graph_vs_eager(lambda: cg.run(creqs) if gpu.cuda_graphs
+                            else ce.run(creqs))
+    sm.check(_same_results(rc, rg) and _same_results(rg, re)
+             and cg.stats == cc.stats == ce.stats,
+             f"tiny ContinuousServingPipeline (5 requests, budgets 3/12, "
+             f"batch 2, chunk 3): card == cpu {_same_results(rc, rg)}, "
+             f"graph == eager {_same_results(rg, re)}, stats card "
+             f"{cg.stats} cpu {cc.stats}")
+
+    ucpu, ugpu, _, _ = _tiny_upn_pair(upn_mod, msda)
+    images = [_synthetic_image(310 + i).resize((320, 256)) for i in range(2)]
+    ureqs = [{"image": im, "text": OD_template.format("orange")}
+             for im in images]
+    uopts = serving.UPNFO1Options(batch_size=1, min_score=0.0, max_boxes=10,
+                                  max_new_tokens=12)
+    oc = serving.UPNFO1Pipeline(ucpu, cpu, uopts).run(ureqs)
+    msda.ms_deform_attn_core.launches = 0
+    og = serving.UPNFO1Pipeline(ugpu, gpu, uopts).run(ureqs)
+    upn_launches = msda.ms_deform_attn_core.launches
+    for i, (c, g) in enumerate(zip(oc, og)):
+        pc_, pg_ = np.asarray(c["proposals"]), np.asarray(g["proposals"])
+        if pc_.shape == pg_.shape and (pc_ == pg_).all():
+            ok, how = c["text"] == g["text"], "the same proposals"
+        else:
+            # the filter truncates to ints: a float box a hair either side
+            # of an integer on the two devices moves one coordinate by 1;
+            # then the card's answer must equal the CPU FO1's over the
+            # card's proposals
+            msgs = [{"role": "user", "content": [
+                {"type": "image_url", "image_url": {"url": images[i]}},
+                {"type": "text", "text": ureqs[i]["text"]}],
+                "bbox_list": g["proposals"]}]
+            ref = cpu.finish_batch(cpu.launch_batch(
+                [cpu.prepare(msgs, device_preproc=True)],
+                max_new_tokens=12))[0]
+            ok = (pc_.shape == pg_.shape and np.abs(pc_ - pg_).max() <= 1
+                  and g["text"] == ref.text)
+            how = (f"proposals off by at most 1 px at "
+                   f"{int((pc_ != pg_).sum())} coordinates; answer equals "
+                   f"the CPU FO1's over the card's proposals")
+        sm.check(ok, f"tiny UPN -> FO1 pipeline request {i}: card == cpu "
+                 f"({how}); {len(g['proposals'])} proposals")
+    sm.check(upn_launches == 2 * 4, f"tiny UPN -> FO1 pipeline: msda "
+             f"launches {upn_launches} (4 a UPN forward, 2 forwards)")
+
+    # launch_batch enqueues without waiting for the device (the program
+    # and plan tensors exist after the first launch at this shape)
+    preps = [gpu.prepare(m) for m in batches["stacked"]]
+    gpu.finish_batch(gpu.launch_batch(preps, max_new_tokens=12))
+    torch.cuda.synchronize()
+    err = None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = gpu.launch_batch(preps, max_new_tokens=12)
+    except RuntimeError as e:
+        err, handle = e, None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if handle is not None:
+        gpu.finish_batch(handle)
+    sm.check(err is None, f"tiny launch_batch with sync debug mode 'error': "
+             f"no host synchronisation ({err})")
+
+
+def _decode_step_ms(model, gen, b, graphs, reps=3):
+    """Device ms per decode step of the model's masked step at B rows over
+    a demo-request cache (C = 1792 + 32), every step live: CUDA events
+    around `reps` runs of one loop program (a graph replay each, or the
+    same steps eagerly). Returns (ms a step, program bytes, graph pool
+    bytes)."""
+    g = model._gen_cfg(SERVE_NEW, 0.0, 1.0, -1)   # no row ever finishes
+    prog = gen.loop_program(model.text, model.cfg.text, g, b, DECODE_C,
+                            1792, graphs)
+    with torch.inference_mode():
+        prog.cur.random_(0, 1000)
+        prog.done.zero_()
+        prog.seq_lens.fill_(1771)
+        prog.rope_deltas.zero_()
+        prog.step.fill_(1)
+        prog.run()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            prog.step.fill_(1)
+            prog.run()
+        e1.record()
+        torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (reps * prog.steps)
+    sizes = (prog.nbytes(), prog.captured.pool_bytes)
+    gen.release_program(model.text, prog)
+    return ms, *sizes
+
+
+def _stage_logits(model, preps):
+    """Encode, splice and prefill of a same-geometry batch, nothing else:
+    (embeddings [B, L, D], last-token logits [B, V])."""
+    from vlm_fo1_tpu_torch.runtime import generate as gen
+
+    enc = model._stack_batch_inputs(preps)
+    pad = gen.pad_to_bucket(max(p["splice"].seq_len for p in preps), 128)
+    with torch.inference_mode():
+        vision, region = model._encode_batched(enc)
+        emb, *_ = model._splice_stacked(enc, vision, region, preps, pad)
+    return emb, _batch_prefill(model, emb, preps)
+
+
+def _batch_prefill(model, emb, preps):
+    """The prefill logits of right-padded embeddings [B, L, D]."""
+    from vlm_fo1_tpu_torch.runtime import generate as gen
+
+    pad = emb.shape[1]
+    pos = np.zeros((3, len(preps), pad), np.int64)
+    for i, p in enumerate(preps):
+        pos[:, i, :p["splice"].seq_len] = p["position_ids"][:, 0]
+    seq = np.array([p["splice"].seq_len for p in preps])
+    with torch.inference_mode():
+        return gen.prefill(model.text, model.cfg.text, emb,
+                           model._upload(pos), model._upload(seq), pad + 1,
+                           attention=model.attention)[1]
+
+
+def _row_rel_np(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _zero_launches(*fns):
+    for fn in fns:
+        fn.launches = 0
+
+
+def _results_equal(sm, what, graph, eager):
+    """Graph decode against eager decode of the same requests: tokens and
+    num_steps equal, row by row."""
+    same = _same_results(graph, eager)
+    first = [next((i for i, (a, b) in enumerate(zip(g.token_ids,
+                                                      e.token_ids))
+                   if a != b), None) for g, e in zip(graph, eager)]
+    prefill = all(np.array_equal(g.prefill_logits, e.prefill_logits)
+                  for g, e in zip(graph, eager))
+    sm.check(same, f"{what}: graph decode == eager decode (tokens and "
+             f"num_steps) {same}; steps {[r.num_steps for r in graph]} / "
+             f"{[r.num_steps for r in eager]}; prefill logits equal "
+             f"{prefill}; first differing token per row {first}")
+    return same
+
+
+def phase_serving_3b(sm, fo1, upn, fa, msda, gen, serving, OD_template):
+    """FO1Config() bf16 (the phase-6 model) and the phase-7 UPN: decode ms
+    a step eager and from graphs, the staged single request and a batch of
+    8 demo requests with graph decode equal to eager decode, the batch's
+    rows vs each request alone, the three pipelines, and the flash kernel
+    on the batch's own right-padded prefill against its plain version.
+    The flash and MSDA counts are zeroed just before each main-path run
+    (the batch of 8, each pipeline) and read just after it; the
+    comparisons run outside those windows."""
+    out = {"decode_ms_per_step": {}}
+    windows = {}
+    counted = (fa.flash_attention, msda.ms_deform_attn_core)
+
+    def read(window):
+        windows[window] = {f.__name__: f.launches for f in counted}
+    for b in (1, SERVE_BATCH):
+        for graphs in (False, True):
+            ms, nbytes, pool = _decode_step_ms(fo1, gen, b, graphs,
+                                               reps=3 if graphs else 1)
+            key = f"B={b} {'graph' if graphs else 'eager'}"
+            out["decode_ms_per_step"][key] = ms
+            sm.log(f"3B bf16 decode {key}: {ms:.3f} ms a step (C = "
+                   f"{DECODE_C}); program {nbytes / 2**30:.3f} GiB of which "
+                   f"graph pool {pool / 2**30:.3f} GiB")
+            if graphs:
+                out[f"graph_bytes_B{b}"] = nbytes
+                out[f"graph_pool_bytes_B{b}"] = pool
+    reqs = [_messages(400 + i, OD_template) for i in range(16)]
+    stages, single = {}, {}
+    for graphs in (False, True):
+        fo1.cuda_graphs = graphs
+        st = {}
+        res = fo1.generate(reqs[0], max_new_tokens=SERVE_NEW, stage_ms=st)
+        stages["graph" if graphs else "eager"] = (st["decode"],
+                                                  res.num_steps)
+        single[graphs] = [res]
+    fo1.cuda_graphs = True
+    _results_equal(sm, "3B bf16 staged single request (B=1)", single[True],
+                   single[False])
+    out["single_decode_stage_ms"] = {k: v[0] for k, v in stages.items()}
+    sm.log(f"3B bf16 single request, decode stage ({stages['graph'][1]} "
+           f"tokens): eager steps {stages['eager'][0]:.1f} ms, graphs "
+           f"{stages['graph'][0]:.1f} ms")
+
+    batch = reqs[:SERVE_BATCH]
+    fo1.generate_batch(batch, max_new_tokens=SERVE_NEW)   # captures B = 8
+    preps = [fo1.prepare(m) for m in batch]
+    with torch.inference_mode():
+        enc = fo1._stack_batch_inputs(preps)
+        twice = [fo1._encode_batched(enc) for _ in range(2)]
+    sm.check(all(torch.equal(a, b) for a, b in zip(*twice)),
+             f"3B bf16 batch of {SERVE_BATCH}: two encodes give the same "
+             f"vision and region tokens, bit for bit")
+    del enc, twice
+    fo1.cuda_graphs = False
+    res_e = fo1.finish_batch(fo1.launch_batch(preps,
+                                              max_new_tokens=SERVE_NEW))
+    fo1.cuda_graphs = True
+    captured = {}
+    attn = fo1.attention
+
+    def record(q, k, v, **kw):
+        if kw.get("causal") and q.shape[0] == SERVE_BATCH:
+            captured.setdefault("qkv", (q, k, v, kw))
+        return attn(q, k, v, **kw)
+
+    fo1.attention = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(*counted)
+    t0 = time.perf_counter()
+    res_b = fo1.finish_batch(fo1.launch_batch(preps,
+                                              max_new_tokens=SERVE_NEW))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    read("generate_batch_b8")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fo1.attention = attn
+    _results_equal(sm, f"3B bf16 batch of {SERVE_BATCH}", res_b, res_e)
+    steps = res_b[0].num_steps
+    out["generate_batch"] = {"ms": batch_ms, "num_steps": steps,
+                             "tokens_per_s": SERVE_BATCH * steps
+                             / batch_ms * 1e3, "peak_gib": peak}
+    sm.log(f"3B bf16 batch of {SERVE_BATCH} demo requests (launch + finish,"
+           f" prepare excluded): {batch_ms:.1f} ms, {steps} steps, "
+           f"{SERVE_BATCH * steps / batch_ms * 1e3:.1f} tokens/s, peak "
+           f"{peak:.2f} GiB, prompts {[r.prompt_len for r in res_b]}")
+
+    rels, agree, alone_embeds, alone_logits = [], [], [], []
+    for i, m in enumerate(batch):
+        alone = fo1.generate(m, max_new_tokens=SERVE_NEW)
+        rels.append(_row_rel_np(res_b[i].prefill_logits,
+                                alone.prefill_logits))
+        n = min(len(alone.token_ids), len(res_b[i].token_ids))
+        agree.append(int((alone.token_ids[:n] == res_b[i].token_ids[:n])
+                         .sum()))
+        emb, logits = _stage_logits(fo1, [preps[i]])
+        alone_embeds.append(emb)
+        alone_logits.append(logits[0])
+    # the trunk: the alone requests' own embeddings as one batch of 8
+    trunk = _batch_prefill(fo1, torch.cat(alone_embeds), preps)
+    trunk_rel = max(_row_rel(trunk[i:i + 1], alone_logits[i][None].float())
+                    for i in range(SERVE_BATCH))
+    sm.check(trunk_rel <= ROW_REL_TOL,
+             f"3B bf16 batched prefill (B={SERVE_BATCH}, ragged bucket) vs "
+             f"each request alone on the same embeddings: worst row "
+             f"relative L2 {trunk_rel:.3e} (tol {ROW_REL_TOL:g})")
+    # end to end, against an f32 copy of the same weights
+    f32 = type(fo1)(fo1.cfg, device="cuda", dtype=torch.float32,
+                    tokenizer=fo1.tokenizer)
+    f32.load_state_dict(fo1.state_dict())
+    ratios, emb_rel = [], []
+    for i in range(SERVE_BATCH):
+        emb32, ref = _stage_logits(f32, [preps[i]])
+        ref = ref[0].float().cpu().numpy()
+        ratios.append(_row_rel_np(res_b[i].prefill_logits, ref) / max(
+            _row_rel_np(alone_logits[i].float().cpu().numpy(), ref), 1e-6))
+        emb_rel.append(((alone_embeds[i].float() - emb32).norm()
+                        / emb32.norm()).item())
+    del f32, emb32
+    torch.cuda.empty_cache()
+    sm.log(f"3B bf16 requests alone against an f32 copy of the weights: "
+           f"embeddings (vision and region tokens spliced) relative L2 "
+           f"{min(emb_rel):.2e}-{max(emb_rel):.2e}")
+    out["row_rel"] = {"end_to_end": max(rels), "trunk": trunk_rel,
+                      "f32_ratio": max(ratios),
+                      "alone_embeddings_vs_f32": max(emb_rel)}
+    sm.check(max(ratios) <= F32_ANCHOR_RATIO and all(np.isfinite(rels)),
+             f"3B bf16 batch of {SERVE_BATCH} vs each request alone, end to "
+             f"end: row relative L2 {[f'{r:.2e}' for r in rels]}; each "
+             f"batched row's distance from an f32 copy of the weights over "
+             f"the alone row's {[f'{r:.3f}' for r in ratios]} (tol "
+             f"{F32_ANCHOR_RATIO:g}); greedy tokens agreeing per row "
+             f"{agree} of {SERVE_NEW}")
+
+    q, k, v, kw = captured["qkv"]
+    got = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+    rel = _row_rel(got, ref)
+    flash_b8 = {"shape": f"B={q.shape[0]} H={q.shape[1]} Hkv={k.shape[1]} "
+                f"S={q.shape[2]} D={q.shape[3]} causal, right-padded",
+                "row_rel": rel,
+                "max_abs_err": (got.float() - ref).abs().max().item()}
+    sm.check(rel <= BF16_TOL, f"flash kernel on the batch's own layer-0 "
+             f"prefill ({flash_b8['shape']}) vs its plain version: worst row "
+             f"relative L2 {rel:.3e} (tol {BF16_TOL:g})")
+    del got, ref, captured
+
+    sopts = serving.ServingOptions(batch_size=SERVE_BATCH,
+                                   max_new_tokens=SERVE_NEW)
+    # a pipeline holds up to max_in_flight + 1 batches' programs: capture
+    # them before the timed run
+    g = fo1._gen_cfg(SERVE_NEW, 0.0, 1.0, None)
+    progs = [gen.loop_program(fo1.text, fo1.cfg.text, g, SERVE_BATCH,
+                              DECODE_C, 1792) for _ in range(2)]
+    for prog in progs:
+        gen.release_program(fo1.text, prog)
+    pipe = serving.ServingPipeline(fo1, sopts)
+    _zero_launches(*counted)
+    t0 = time.perf_counter()
+    res_s = pipe.run(reqs)
+    s_ms = (time.perf_counter() - t0) * 1e3
+    read("serving_pipeline")
+    sm.check(pipe.stats["retries"] == 0 and len(res_s) == 16
+             and pipe.stats["fused_batches"] == pipe.stats["batches"],
+             f"3B ServingPipeline, 16 demo requests (grouped, device "
+             f"preproc, batch 8): {s_ms:.1f} ms, {16e3 / s_ms:.2f} "
+             f"requests/s, stats {pipe.stats}")
+    out["serving"] = {"ms": s_ms, "requests_per_s": 16e3 / s_ms,
+                      "stats": pipe.stats}
+
+    budgets = [SERVE_NEW if i % 2 else SERVE_NEW // 4 for i in range(16)]
+    copts = serving.ContinuousOptions(batch_size=SERVE_BATCH, chunk=8,
+                                      refill_size=2,
+                                      max_new_tokens=SERVE_NEW)
+    # capture the session's chunk program before the timed run
+    prog = gen.acquire_program(
+        fo1.text, fo1.cfg.text, fo1._gen_cfg(SERVE_NEW, 0.0, 1.0, None),
+        mode="chunk", batch=SERVE_BATCH, cache_len=DECODE_C,
+        prompt_pad=1792, steps=8)
+    gen.release_program(fo1.text, prog)
+    cpipe = serving.ContinuousServingPipeline(fo1, copts)
+    _zero_launches(*counted)
+    t0 = time.perf_counter()
+    res_c = cpipe.run([{"messages": m, "max_new_tokens": b}
+                       for m, b in zip(reqs, budgets)])
+    c_ms = (time.perf_counter() - t0) * 1e3
+    read("continuous_pipeline")
+    sync_steps = sum(max(budgets[i:i + SERVE_BATCH]) - 1
+                     for i in range(0, 16, SERVE_BATCH))
+    sm.check(all(r is not None and r.num_steps <= b
+                 for r, b in zip(res_c, budgets)),
+             f"3B ContinuousServingPipeline, 16 demo requests (budgets "
+             f"{SERVE_NEW // 4} / {SERVE_NEW}, batch 8, chunk 8, refill 2): "
+             f"{c_ms:.1f} ms, "
+             f"{16e3 / c_ms:.2f} requests/s, device steps "
+             f"{cpipe.stats['device_steps']} against the batch-synchronous "
+             f"{sync_steps}, stats {cpipe.stats}")
+    out["continuous"] = {"ms": c_ms, "requests_per_s": 16e3 / c_ms,
+                         "device_steps": cpipe.stats["device_steps"],
+                         "batch_synchronous_steps": sync_steps}
+
+    images = [_synthetic_image(600 + i) for i in range(2)]
+    uopts = serving.UPNFO1Options(batch_size=2, min_score=0.0,
+                                  max_new_tokens=SERVE_NEW)
+    _zero_launches(*counted)
+    t0 = time.perf_counter()
+    res_u = serving.UPNFO1Pipeline(upn, fo1, uopts).run(
+        [{"image": im, "text": OD_template.format("orange")}
+         for im in images])
+    u_ms = (time.perf_counter() - t0) * 1e3
+    read("upn_fo1_pipeline")
+    sm.check(len(res_u) == 2 and all(0 < len(r["proposals"]) <= 100
+                                     for r in res_u)
+             and windows["upn_fo1_pipeline"]["ms_deform_attn_core"] == 12,
+             f"3B UPN -> FO1 pipeline, 2 images (batch 2, "
+             f"{[len(r['proposals']) for r in res_u]} proposals, first run "
+             f"at its shape): {u_ms:.1f} ms; answers "
+             f"{[r['fo1_bboxes'] for r in res_u]}")
+    sm.check(all(w["flash_attention"] > 0 for w in windows.values()),
+             f"3B serving path: flash and MSDA launches, each count zeroed "
+             f"just before its run and read just after: {windows}")
+    out["upn_fo1_ms"] = u_ms
+    out["programs_kept_bytes"] = gen._programs(fo1.text).pool_bytes()
+    sm.log(f"3B bf16 decode programs kept: "
+           f"{out['programs_kept_bytes'] / 2**30:.2f} GiB")
+    return out, windows, flash_b8
+
+
+def phase_int4_graph(sm, quant, i4, i4mlp):
+    """The int4 kernels' streaming route at M = 8 (a B = 8 decode step's
+    rows) on the 3B trunk's shapes, captured in a CUDA graph and replayed:
+    bit-equal to an eager call on the same inputs, held against the plain
+    version at the bf16 bounds, routes asserted."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    calls = {}
+    for name, k, n in TRUNK_LINEARS:
+        x = torch.randn(SERVE_BATCH, k, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        packed, scale = quant.quantize_weight_int4(
+            torch.randn(n, k, device="cuda", generator=gen) * 0.02)
+        calls[f"int4_matmul {name} K={k} N={n}"] = (
+            i4.int4_matmul, functools.partial(i4.int4_matmul, x, packed,
+                                              scale),
+            functools.partial(i4.int4_matmul_reference, x.float(), packed,
+                              scale))
+    x = torch.randn(SERVE_BATCH, 2048, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    node = _mlp_node(quant, gen, 2048, 11008)
+    calls["int4_mlp D=2048 I=11008"] = (
+        i4mlp.int4_mlp, functools.partial(i4mlp.int4_mlp, x, node),
+        functools.partial(i4mlp.int4_mlp_reference, x.float(), node))
+    out = {"int4_matmul": True, "int4_mlp": True}
+    for what, (fn, call, plain) in calls.items():
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        routes = dict(fn.routes)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = call()
+        captured = {r: fn.routes[r] - routes[r] for r in routes
+                    if fn.routes[r] != routes[r]}
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        same = torch.equal(got, eager)
+        out[fn.__name__] &= same
+        sm.check(same and set(captured) == {"gemv"},
+                 f"{what} M={SERVE_BATCH} bf16 replayed from a CUDA graph: "
+                 f"bit-equal to eager {same}, captured routes {captured}")
+        ref = plain()
+        _rel_check(sm, f"{what} M={SERVE_BATCH} bf16 from the graph vs its "
+                   f"plain version:", got, ref, BF16_TOL)
+        seg = _seg_rel(got, ref)
+        sm.check(seg <= INT4_SEG_BF16, f"{what} M={SERVE_BATCH} bf16 from "
+                 f"the graph: worst row segment relative L2 {seg:.3e} "
+                 f"(bound {INT4_SEG_BF16:g})")
+        del graph
+    return out
+
+
+def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
+                        OD_template, quant, i4, i4mlp, gen):
+    """FO1Config() in the int4 and int4-mlp modes: the first demo request
+    alone and a batch of 8 (prefill on the TMA tiles, decode steps
+    streaming from the decode graph), graph decode equal to eager decode
+    at B = 1 and 8; the batch's launches (zeroed just before it, read just
+    after) are the trunk's int4 modules once per forward; the decode ms a
+    step at B = 8, eager and graph."""
+    from vlm_fo1_tpu_torch.models.llm import Int4MLP
+    from vlm_fo1_tpu_torch.nn import QLinear4
+
+    runs, launches = {}, {}
+    for mode, fn, kind in (("int4", i4.int4_matmul, QLinear4),
+                           ("int4-mlp", i4mlp.int4_mlp, Int4MLP)):
+        model = FO1Model.random_init(FO1Config(), seed=0,
+                                     dtype=torch.bfloat16, device="cuda",
+                                     tokenizer=FallbackTokenizer())
+        quant.quantize_model(model, mode)
+        per_forward = sum(isinstance(m, kind) for m in model.text.modules())
+        batch = [_messages(700 + i, OD_template) for i in range(SERVE_BATCH)]
+        eager, graph = {}, {}
+        for graphs, res in ((False, eager), (True, graph)):
+            model.cuda_graphs = graphs
+            res[1] = [model.generate(batch[0], max_new_tokens=SERVE_NEW)]
+            res[SERVE_BATCH] = model.generate_batch(
+                batch, max_new_tokens=SERVE_NEW)   # graphs: captures
+        model.cuda_graphs = True
+        for b in (1, SERVE_BATCH):
+            _results_equal(sm, f"3B {mode} B={b}", graph[b], eager[b])
+        preps = [model.prepare(m) for m in batch]
+        routes0 = dict(fn.routes)
+        steps0 = gen.DecodeProgram.steps_run
+        torch.cuda.synchronize()
+        fn.launches = 0
+        t0 = time.perf_counter()
+        res = model.finish_batch(model.launch_batch(
+            preps, max_new_tokens=SERVE_NEW))
+        ms = (time.perf_counter() - t0) * 1e3
+        n = fn.launches
+        forwards = 1 + gen.DecodeProgram.steps_run - steps0
+        routes = {r: fn.routes[r] - routes0[r] for r in routes0
+                  if fn.routes[r] != routes0[r]}
+        launches[fn.__name__] = n
+        step = {}
+        for graphs in (False, True):
+            step["graph" if graphs else "eager"] = _decode_step_ms(
+                model, gen, SERVE_BATCH, graphs, reps=3 if graphs else 1)[0]
+        runs[mode] = {"batch_ms": ms, "num_steps": res[0].num_steps,
+                      "launches": n, "forwards": forwards,
+                      "launches_per_forward": n / forwards, "routes": routes,
+                      "graph_equals_eager": {
+                          f"B={b}": _same_results(graph[b], eager[b])
+                          for b in (1, SERVE_BATCH)},
+                      "decode_ms_per_step_B8": step}
+        sm.check(n == per_forward * forwards and routes.get("tma", 0) > 0
+                 and routes.get("gemv", 0) > 0 and "mma" not in routes
+                 and _same_results(res, graph[SERVE_BATCH])
+                 and all(np.isfinite(r.prefill_logits).all() for r in res),
+                 f"3B {mode} batch of {SERVE_BATCH} demo requests: {ms:.1f} "
+                 f"ms ({res[0].num_steps} steps), {fn.__name__} launches {n}"
+                 f" == {per_forward} a forward x {forwards} forwards on the "
+                 f"device (graph replays counted), routes {routes}; the "
+                 f"same results as the batch before; decode a step at "
+                 f"B={SERVE_BATCH}: eager {step['eager']:.3f} ms, graph "
+                 f"{step['graph']:.3f} ms")
+        del model
+        torch.cuda.empty_cache()
+    return runs, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1879,6 +2536,8 @@ def main():
     from vlm_fo1_tpu_torch.ops import msda_micro as mm
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
+    from vlm_fo1_tpu_torch.runtime import generate as gen
+    from vlm_fo1_tpu_torch.runtime import serving
     from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
         FallbackTokenizer,
     )
@@ -1916,6 +2575,10 @@ def main():
     # phases 4-5: tiny f32, card vs cpu
     phase_tiny_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template)
     phase_tiny_upn(sm, upn_mod, msda)
+    # phase 22: tiny batched / serving / continuous / UPN -> FO1, card vs
+    # CPU, graph vs eager
+    phase_tiny_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
+                       OD_template, upn_mod, msda, serving)
 
     # phases 6-8: full width
     fo1, flash_launches, flash_per_request = phase_fo1(
@@ -1925,12 +2588,18 @@ def main():
         msda_inputs = phase_upn(sm, upn_mod, msda)
     path_launches = phase_upn_fo1(sm, upn, fo1, fa, msda, OD_template,
                                   extract_predictions_to_bboxes)
+    # phase 23: batched generation and the three pipelines at full width
+    serve, serve_launches, flash_b8 = phase_serving_3b(
+        sm, fo1, upn, fa, msda, gen, serving, OD_template)
+    sm.log("3B bf16 serving: " + json.dumps(serve))
     del fo1, upn
     torch.cuda.empty_cache()
 
     # phases 9-12: the quantized serving modes
     i4_err, i4_times = phase_int4_matmul(sm, quant, i4)
     mlp_err, mlp_times = phase_int4_mlp(sm, quant, i4mlp)
+    # phase 24: the int4 streaming route replayed from a CUDA graph
+    i4_graph = phase_int4_graph(sm, quant, i4, i4mlp)
     phase_tiny_quant(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                      quant, i4, i4mlp)
     quant_runs = {}
@@ -1939,6 +2608,11 @@ def main():
         quant_runs[mode] = phase_quant_fo1(
             sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, quant,
             fa, i4, i4mlp, extract_predictions_to_bboxes, mode, n_req)
+    # phase 25: int4 and int4-mlp batches of 8, decode from graphs
+    qserve, qlaunches = phase_quant_serving(
+        sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, quant, i4,
+        i4mlp, gen)
+    sm.log("3B int4 serving: " + json.dumps(qserve))
 
     # phases 13-17: training (the earlier models are freed)
     bwd_err, bwd_times = phase_msda_bwd(sm, msda, msda_inputs)
@@ -1988,6 +2662,9 @@ def main():
         "launches_upn_fo1_path": path_launches["flash_attention"],
         "launches_3b_train_steps": train_flash,
         "train_loss_backward_vs_plain": train_paths,
+        "launches_serving_path": {
+            w: c["flash_attention"] for w, c in serve_launches.items()},
+        "batched_prefill_b8": flash_b8,
     }, {
         "name": "ms_deform_attn_core", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda.cu",
@@ -2000,6 +2677,8 @@ def main():
         "decoder": msda_times["decoder"],
         "launches_per_request": msda_per_request,
         "launches_upn_fo1_path": path_launches["ms_deform_attn_core"],
+        "launches_serving_path": {
+            w: c["ms_deform_attn_core"] for w, c in serve_launches.items()},
     }, {
         "name": "int4_matmul", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/int4_matmul.cu",
@@ -2009,6 +2688,9 @@ def main():
         **i4_times["gate_up M=1"],
         "shapes": i4_times,
         "launches_per_request": quant_runs["int4"][1],
+        "launches_serving_path": qlaunches["int4_matmul"],
+        "graph_m8_bit_equal": i4_graph["int4_matmul"],
+        "serving_b8": qserve["int4"],
     }, {
         "name": "int4_mlp", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/int4_mlp.cu",
@@ -2018,6 +2700,9 @@ def main():
         **mlp_times["M=1"],
         "shapes": mlp_times,
         "launches_per_request": quant_runs["int4-mlp"][1],
+        "launches_serving_path": qlaunches["int4_mlp"],
+        "graph_m8_bit_equal": i4_graph["int4_mlp"],
+        "serving_b8": qserve["int4-mlp"],
     }, {
         "name": "msda_backward", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda_bwd.cu",

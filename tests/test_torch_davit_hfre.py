@@ -1,5 +1,7 @@
 """PyTorch DaViT, pooled ROIAlign, HFRE and projector vs the JAX modules on
-tiny shapes, f32 on the CPU (atol 1e-4: f32, different summation order)."""
+tiny shapes, f32 on the CPU (atol 1e-4: f32, different summation order).
+The `cuda` test holds the ROIAlign to the same bits on every call on the
+card."""
 
 import jax
 import jax.numpy as jnp
@@ -125,3 +127,27 @@ def test_unported_projectors_raise():
     for kind in ("cabstract", "tokenpacker"):
         with pytest.raises(NotImplementedError):
             build_projector(kind, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("upsample", [1, 4])
+def test_roi_align_repeats_bit_equal_on_card(upsample):
+    """On the card the pooled ROIAlign gives the same bits on every call
+    (its tap weights are summed in a fixed order, not by atomics), and
+    agrees with the CPU to ATOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    feat = rand(np.random.default_rng(4), 192 // upsample, 192 // upsample,
+                64)
+    boxes = np.random.default_rng(5).uniform(0, 760, (100, 4)).astype(
+        np.float32)
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2])
+    args = (torch.from_numpy(feat), torch.from_numpy(boxes), 7, 0.25)
+    ref = roi_align_mean_separable(*args, upsample=upsample)
+    outs = [roi_align_mean_separable(*(a.cuda() for a in args[:2]),
+                                     *args[2:], upsample=upsample)
+            for _ in range(20)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    np.testing.assert_allclose(outs[0].cpu().numpy(), ref.numpy(),
+                               atol=ATOL)

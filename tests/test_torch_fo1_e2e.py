@@ -146,10 +146,12 @@ def test_stop_sequence_matches(models):
 
 
 def test_port_and_example_never_import_jax(tmp_path):
-    """Importing every module of the port (the training modules and the
-    MSDA microbenchmarks named explicitly) and running the port's examples on the CPU (the FO1 one
-    also in the int4 mode, and one training step with a checkpoint) loads
-    neither JAX nor the JAX package."""
+    """Importing every module of the port (the training modules, the MSDA
+    microbenchmarks, the serving pipelines, the checkpoint loader, the API
+    and the tower builders named explicitly) and running the port's
+    examples on the CPU (the FO1 one also in the int4 mode, one training
+    step with a checkpoint, and a batch of three through serve_torch.py)
+    loads neither JAX nor the JAX package."""
     runs = [
         ("inference_torch.py", ["--max-new-tokens", "2", "--output",
                                 str(tmp_path / "fo1.jpg")]),
@@ -160,6 +162,7 @@ def test_port_and_example_never_import_jax(tmp_path):
                                          str(tmp_path / "upn_fo1.jpg")]),
         ("train_torch.py", ["--steps", "1", "--ckpt-dir",
                             str(tmp_path / "ckpt")]),
+        ("serve_torch.py", ["--requests", "3", "--max-new-tokens", "2"]),
     ]
     code = (
         "import importlib, pkgutil, runpy, sys\n"
@@ -169,6 +172,9 @@ def test_port_and_example_never_import_jax(tmp_path):
         "from vlm_fo1_tpu_torch.training import checkpointing, train_step\n"
         "from vlm_fo1_tpu_torch.ops import matmul_floor, msda_dma, "
         "msda_micro\n"
+        "from vlm_fo1_tpu_torch import api, checkpoint\n"
+        "from vlm_fo1_tpu_torch.models import builder\n"
+        "from vlm_fo1_tpu_torch.runtime import graphs, serving\n"
         f"for script, extra in {runs!r}:\n"
         "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
         " + extra\n"
@@ -185,3 +191,4 @@ def test_port_and_example_never_import_jax(tmp_path):
     assert out.stdout.count("parsed boxes") == 3
     assert "proposals above" in out.stdout
     assert "step_1" in out.stdout and (tmp_path / "ckpt" / "step_1").is_dir()
+    assert "batch: 3 requests" in out.stdout

@@ -78,9 +78,11 @@ def run(request):
         with torch.no_grad():
             cache, logits = prefill(text, pcfg,
                                     torch.from_numpy(embeds[:, :S]),
-                                    torch.from_numpy(pos).long(), S + MAX_NEW)
-            tokens, steps = decode_loop(text, pcfg, gen_cfg, cache, logits, S,
-                                        delta)
+                                    torch.from_numpy(pos).long(),
+                                    torch.tensor([S]), S + MAX_NEW)
+            tokens, steps = decode_loop(text, pcfg, gen_cfg, cache, logits,
+                                        torch.tensor([S]),
+                                        torch.tensor([delta]))
         return logits.numpy(), tokens.numpy(), steps
 
     return jax_run, torch_run, cfg.tie_word_embeddings

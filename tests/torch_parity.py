@@ -53,3 +53,36 @@ def port_config(jax_cfg):
     if dataclasses.asdict(cfg) != dataclasses.asdict(jax_cfg):
         raise AssertionError(f"port config differs: {cfg} vs {jax_cfg}")
     return cfg
+
+
+def jax_fo1_params(state_dict, jax_cfg):
+    """A port FO1 state dict (the checkpoint's names under the port's tower
+    prefixes) -> the JAX FO1 parameter tree in f32, through the JAX
+    package's own checkpoint converters. Much faster than the JAX
+    `random_init` for building both sides of a parity test."""
+    import jax.numpy as jnp
+
+    from vlm_fo1_tpu.checkpoint import (
+        convert_davit,
+        convert_text_model,
+        convert_vision_tower,
+        strip_prefix,
+        to_device_tree,
+    )
+    from vlm_fo1_tpu.models.projector import convert_projector_params
+
+    sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
+    params = {
+        "vision_tower": convert_vision_tower(
+            strip_prefix(sd, "vision_tower."), jax_cfg.vision),
+        "vision_tower_aux": convert_davit(
+            strip_prefix(sd, "vision_tower_aux."), jax_cfg.davit),
+        "text": convert_text_model(strip_prefix(sd, "text."), jax_cfg.text),
+        "mm_projector": convert_projector_params(
+            strip_prefix(sd, "mm_projector."), jax_cfg.mm_projector_type),
+        "mm_projector_aux": convert_projector_params(
+            strip_prefix(sd, "mm_projector_aux."),
+            jax_cfg.mm_projector_aux_type),
+        "hfre": {},
+    }
+    return to_device_tree(params, jnp.float32)

@@ -5,10 +5,17 @@ The KV cache is preallocated as [L, B, C, Hkv, hd] and written in place
 (the JAX package threads an updated copy through its scan instead). A
 multi-token call is a prefill from cache slot 0: its attention runs through
 `attention` (the flash kernel by default) over the prompt's own k/v with
-`causal=True, kv_len=S`, which equals the JAX prefill mask on the real
-rows. A single-token call is a decode step: plain PyTorch attention over the
-cache up to the written slot. A call with no cache is the training forward:
-the whole sequence through `attention` (`causal_attention` there).
+`causal=True, kv_len=S`. On a right-padded batch that equals the JAX prefill
+mask (`causal & in_prompt` over the cache) on every real query, since a real
+query never sees a key at or past its row's length; padded queries differ,
+and the decode mask keeps their keys out of every later step. A
+single-token call is a decode step with static shapes, as the JAX
+`_attention` decode path: its k/v are written at a device index (one slot
+for all rows, or one per row) and it attends over the whole cache under an
+explicit mask [B, 1, 1, C], so no step depends on a host value and a run of
+steps can be captured as a CUDA graph (`runtime/graphs.py`). A call with no
+cache is the training forward: the whole sequence through `attention`
+(`causal_attention` there).
 
 Parameters use the checkpoint's names: `embed_tokens.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj`, `layers.{i}.mlp.*`, `norm.weight`,
@@ -101,34 +108,41 @@ class Attention(nn.Module):
         self.o_proj = tnn.Linear(nh * hd, d, bias=False)
         self.nh, self.nkv, self.hd = nh, nkv, hd
 
-    def forward(self, x, cos, sin, kc, vc, offset, attention):
-        """x [B, S, D]; kc/vc this layer's cache [B, C, Hkv, hd], written in
-        place at [offset, offset + S), or None for a cache-free call."""
+    def forward(self, x, cos, sin, kc, vc, offset, attention, mask=None):
+        """x [B, S, D]; kc/vc this layer's cache [B, C, Hkv, hd] or None
+        for a cache-free call. A multi-token call writes slots
+        [offset, offset + S) with offset 0. A single-token call writes at
+        `offset`, a device tensor holding one slot ([]) or one slot per row
+        ([B]), and attends over all C slots where `mask` [B, 1, 1, C] is
+        True."""
         b, s, _ = x.shape
         nh, nkv, hd = self.nh, self.nkv, self.hd
         q = _apply_rope(self.q_proj(x).reshape(b, s, nh, hd), cos, sin)
         k = _apply_rope(self.k_proj(x).reshape(b, s, nkv, hd), cos, sin)
         v = self.v_proj(x).reshape(b, s, nkv, hd)
-        if kc is not None:
-            kc[:, offset:offset + s] = k.to(kc.dtype)
-            vc[:, offset:offset + s] = v.to(vc.dtype)
         if s > 1 or kc is None:
             if offset != 0:
                 raise ValueError("multi-token calls are prefills from slot 0")
+            if kc is not None:
+                kc[:, :s] = k.to(kc.dtype)
+                vc[:, :s] = v.to(vc.dtype)
             out = attention(q.transpose(1, 2).contiguous(),
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(),
                             causal=True, kv_len=s)
             out = out.transpose(1, 2).reshape(b, s, nh * hd)
             return self.o_proj(out)
-        # decode step: plain attention over cache slots [0, offset]
-        k_all = kc[:, :offset + 1].to(x.dtype)
-        v_all = vc[:, :offset + 1].to(x.dtype)
+        # decode step: write each row's slot, attend over the whole cache
+        c = kc.shape[1]
+        rows = torch.arange(b, device=x.device) * c + offset
+        kc.view(b * c, nkv, hd).index_copy_(0, rows, k[:, 0].to(kc.dtype))
+        vc.view(b * c, nkv, hd).index_copy_(0, rows, v[:, 0].to(vc.dtype))
         qg = q.reshape(b, nkv, nh // nkv, hd)
-        logits = torch.einsum("bngh,bcnh->bngc", qg.float(), k_all.float())
-        logits = (logits * (1.0 / math.sqrt(hd))).to(x.dtype)
-        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bngc,bcnh->bngh", probs, v_all)
+        logits = torch.einsum("bngh,bcnh->bngc", qg.float(), kc.float())
+        logits = logits * (1.0 / math.sqrt(hd))
+        logits = logits.masked_fill(~mask[:, :, :1], tnn.MASK_FILL)
+        probs = torch.softmax(logits.to(x.dtype).float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bngc,bcnh->bngh", probs, vc.to(x.dtype))
         return self.o_proj(out.reshape(b, 1, nh * hd))
 
 
@@ -173,9 +187,9 @@ class DecoderLayer(nn.Module):
         self.self_attn = Attention(cfg)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, cos, sin, kc, vc, offset, attention):
+    def forward(self, x, cos, sin, kc, vc, offset, attention, mask=None):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, kc, vc,
-                               offset, attention)
+                               offset, attention, mask)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -192,14 +206,17 @@ class TextModel(nn.Module):
                                       bias=False)
 
     def forward(self, hidden, cos, sin, kv_cache=None, offset=0,
-                attention=flash_attention, remat=False):
-        """hidden [B, S, D] -> final-normed hidden [B, S, D]; fills
-        kv_cache slots [offset, offset + S) of every layer. With no cache
-        (the JAX `text_forward` with kv_cache=None) the whole sequence goes
-        through `attention` under the causal mask: training passes the
-        differentiable `causal_attention`, and remat=True recomputes each
-        layer in the backward pass instead of storing its activations (the
-        JAX `remat`, `jax.checkpoint` per scanned layer)."""
+                attention=flash_attention, remat=False, mask=None):
+        """hidden [B, S, D] -> final-normed hidden [B, S, D]. A prefill
+        (S > 1, offset 0) fills kv_cache slots [0, S) of every layer; a
+        decode step (S = 1) writes slot `offset` (a device tensor, [] or
+        [B]) and attends under `mask` [B, 1, 1, C] (see `Attention`). With
+        no cache (the JAX `text_forward` with kv_cache=None) the whole
+        sequence goes through `attention` under the causal mask: training
+        passes the differentiable `causal_attention`, and remat=True
+        recomputes each layer in the backward pass instead of storing its
+        activations (the JAX `remat`, `jax.checkpoint` per scanned
+        layer)."""
         x = hidden
         for i, layer in enumerate(self.layers):
             if isinstance(layer.mlp, Int4MLP) and self.cfg.hidden_act != "silu":
@@ -208,9 +225,9 @@ class TextModel(nn.Module):
                       else (kv_cache["k"][i], kv_cache["v"][i]))
             if remat:
                 x = checkpoint(layer, x, cos, sin, kc, vc, offset, attention,
-                               use_reentrant=False)
+                               mask, use_reentrant=False)
             else:
-                x = layer(x, cos, sin, kc, vc, offset, attention)
+                x = layer(x, cos, sin, kc, vc, offset, attention, mask)
         return self.norm(x)
 
     def embed(self, ids):

@@ -38,10 +38,12 @@ def _axis_pooled_weights(lo, hi, size, out_bins, ns_max, sampling_ratio):
     i0 = torch.floor(pc).long()
     i1 = torch.clamp(i0 + 1, max=size - 1)
     frac = pc - i0.float()
-    w = torch.zeros((n, size), dtype=torch.float32, device=dev)
-    w.scatter_add_(1, i0, wt * (1.0 - frac))
-    w.scatter_add_(1, i1, wt * frac)
-    return w
+    # sums over one-hot taps, not scatter_add_: on the card scatter_add_
+    # adds with atomics in no fixed order, and the region features would
+    # change in their last bits from one run to the next
+    cols = torch.arange(size, device=dev)
+    w = ((i0[..., None] == cols) * (wt * (1.0 - frac))[..., None]).sum(1)
+    return w + ((i1[..., None] == cols) * (wt * frac)[..., None]).sum(1)
 
 
 def _upsample_matrix_1d(size: int, factor: int, device) -> torch.Tensor:

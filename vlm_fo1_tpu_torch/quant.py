@@ -15,11 +15,13 @@ The modes, by name (`quantize_model`):
             (D odd or I % 128) keeps int8 MLPs
 
 Quantized values, scales and packings are the JAX package's, byte for byte;
-only the layout of int8 weights follows the port's linears ([out, in]).
-Modules are swapped in place, one at a time, and each full-precision weight
-is dropped as soon as its quantized copy exists, so memory peaks near the
-model plus one layer. The patterns match the port's module names (the
-checkpoint's), selecting the same linears as the JAX patterns select tree
+only the layout of int8 weights follows the port's linears ([out, in]). Modules
+are swapped in place, one at a time, and each full-precision weight is dropped
+as soon as its quantized copy exists, so memory peaks near the model plus one
+layer. Every function here that swaps a module or its function drops the
+model's captured decode programs, which read the old ones
+(`runtime.generate.drop_programs`). The patterns match the port's module names
+(the checkpoint's), selecting the same linears as the JAX patterns select tree
 paths.
 """
 
@@ -30,7 +32,7 @@ import re
 import torch
 
 from vlm_fo1_tpu_torch import nn as tnn
-from vlm_fo1_tpu_torch.models.llm import Int4MLP
+from vlm_fo1_tpu_torch.models.llm import Int4MLP, TextModel
 from vlm_fo1_tpu_torch.ops.int4_matmul import (  # noqa: F401
     int4_matmul,
     int4_matmul_reference,
@@ -38,6 +40,7 @@ from vlm_fo1_tpu_torch.ops.int4_matmul import (  # noqa: F401
     unpack_int4_halves,
 )
 from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp, int4_mlp_reference
+from vlm_fo1_tpu_torch.runtime.generate import drop_programs
 
 MODES = ("none", "int8", "int8-all", "w8a8", "int4", "int4-mlp")
 
@@ -110,6 +113,13 @@ def _swap(model, name, new):
     setattr(model.get_submodule(parent) if parent else model, child, new)
 
 
+def _drop_programs(model):
+    for mod in model.modules():
+        if isinstance(mod, TextModel):
+            drop_programs(mod)
+    return model
+
+
 @torch.no_grad()
 def quantize_params(model, patterns=DEFAULT_QUANT_PATTERNS):
     """int8 for every linear (and the token table) whose name matches one
@@ -122,7 +132,7 @@ def quantize_params(model, patterns=DEFAULT_QUANT_PATTERNS):
             new = tnn.QLinear8(*quantize_int8(mod.weight), mod.bias)
         del mod
         _swap(model, name, new)
-    return model
+    return _drop_programs(model)
 
 
 def mark_w8a8(model):
@@ -131,7 +141,7 @@ def mark_w8a8(model):
     for mod in model.modules():
         if isinstance(mod, tnn.QLinear8) and mod.a8 is None:
             mod.a8 = torch.ones(1, dtype=torch.int8, device=mod.w_q.device)
-    return model
+    return _drop_programs(model)
 
 
 def quantize_params_w8a8(model, patterns=DEFAULT_QUANT_PATTERNS):
@@ -153,7 +163,7 @@ def quantize_params_int4(model, patterns=DEFAULT_QUANT_PATTERNS):
     if isinstance(text.embed_tokens, tnn.Weight):
         text.embed_tokens = tnn.QEmbedding8(
             *quantize_int8(text.embed_tokens.weight))
-    return model
+    return _drop_programs(model)
 
 
 @torch.no_grad()
@@ -227,7 +237,7 @@ def use_int4_kernels(model, kernels: bool = True):
             mod.matmul = int4_matmul if kernels else int4_matmul_reference
         elif isinstance(mod, Int4MLP):
             mod.fn = int4_mlp if kernels else int4_mlp_reference
-    return model
+    return _drop_programs(model)
 
 
 def quantized_bytes(model) -> int:
