@@ -162,7 +162,37 @@ Phases (any failure exits non-zero and prints no result line):
      decode streaming from the decode graph), graph decode equal to eager
      decode at B = 1 and 8, the batch's launches the int4 modules once
      per forward the device ran, and the decode ms a step at B = 8, eager
-     and from graphs.
+     and from graphs;
+ 26. (after phase 23) the phase-6 3B bf16 model on multi-slot prompts: a
+     two-image request (two 1288x966 synthetic images, the 7 demo boxes on
+     the first) and a video request (8 synthetic 1288x966 frames: grid
+     (4, 62, 84), 22,528 padded ViT tokens), each with its stage ms, peak
+     memory and flash launches zeroed just before it and read just after
+     (4 per ViT encode + 36 for the prefill: 44 and 40); the two-image
+     request's kernel path against its plain path at full width
+     (PATH_REL_TOL); a generate_batch of 8 mixing four single-image, two
+     two-image and two video prompts (per-item encode, 76 flash launches),
+     each row's prefill logits within 2e-2 relative L2 of the request
+     alone and the greedy tokens that agree printed; the per-stage TFLOP/s
+     of the phase-6 demo request from runtime/flops.py against the H100
+     SXM dense bf16 peak;
+ 27. (after phase 2) the flash kernel at the video's ViT full-attention
+     shape (S = 22,528, D = 80, 16 heads, the plan's kv_valid) in bf16
+     against its plain version on 512 sampled query rows of every head
+     against all keys (the whole plain attention needs 32 GB of logits),
+     phase 2's row bound and its two planted faults; kernel and
+     scaled_dot_product_attention as CUDA graph replays beside the bound,
+     the plain version's time on the sampled rows;
+ 28. (after phase 26) every HFRE variant (the eight combinations, the
+     feature-map and hybrid position embeddings, none, vt-only, aux-only,
+     region LayerNorms, the SimpleFPN vt path, a pre-concatenated aux map)
+     on the phase-6 request's own DaViT maps and ViT captures, and the
+     CAbstractor and TokenPacker at the trunk's widths: card vs CPU in
+     f32, relative L2 <= 1e-4;
+ 29. (after phase 28) the evaluation runners over the 3B model on records
+     fabricated from --seed (default 0) under build/: 16 CountBench items
+     (3-12 boxes) at batch 1, 8 and pipelined 8 with equal predictions, 8
+     COCO images through eval_coco and score_coco_files; items/s each.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -2519,11 +2549,472 @@ def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
     return runs, launches
 
 
+# ---------------------------------------- multi-image and video prompts
+
+VIDEO_GRID = (4, 62, 84)   # 8 frames of 1288x966 under max_pixels 1024^2
+MM_NEW = 32                # tokens per request in the multimodal runs
+
+
+def _mm_messages(kind, seed, template):
+    """A two-image request (the 7 demo boxes on the first image) or a video
+    request of 8 synthetic 1288x966 frames."""
+    text = {"type": "text", "text": template.format("orange")}
+    if kind == "two_images":
+        return [{"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": _synthetic_image(s)}}
+            for s in (seed, seed + 1)] + [text], "bbox_list": DEMO_BOXES}]
+    frames = [_synthetic_image(seed + i) for i in range(8)]
+    return [{"role": "user", "content": [
+        {"type": "video_url", "video_url": {"url": frames}}, text]}]
+
+
+def _stage_line(stage):
+    return ", ".join(f"{k} {stage[k]:.1f} ms"
+                     for k in ("prepare", "encode", "prefill", "decode"))
+
+
+def phase_multimodal_3b(sm, fo1, fa, OD_template, flops):
+    """The phase-6 3B bf16 model on multi-slot prompts: a two-image request
+    and a video request (stage ms, peak, flash launches zeroed just before
+    each and read just after: 4 per ViT encode + 36 for the prefill; each
+    measured on its second staged run, after the first captured its decode
+    program, whose capture the prefill stage would hold), the
+    two-image request's kernel path against its plain path at full width,
+    a mixed generate_batch of 8 (four single-image, two two-image, two
+    video prompts; per-item encode) against each request alone, and the
+    per-stage TFLOP/s of the phase-6 demo request from runtime/flops.py."""
+    cfg = fo1.cfg
+    layers = cfg.text.num_hidden_layers
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    out = {}
+    for kind, seed in (("two_images", 200), ("video", 210)):
+        msgs = _mm_messages(kind, seed, OD_template)
+        prep = fo1.prepare(msgs)
+        plans = prep["plans"]
+        if kind == "video":
+            sm.check(tuple(prep["grid"]) == VIDEO_GRID
+                     and plans[0].seq_pad == 22528,
+                     f"video prep: grid {prep['grid']}, "
+                     f"{plans[0].seq_pad} padded ViT tokens, "
+                     f"{plans[0].num_units} video tokens in the prompt")
+        # a first staged run captures the decode program of this shape
+        fo1.generate(msgs, max_new_tokens=MM_NEW, stage_ms={})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        stage = {}
+        _zero_launches(fa.flash_attention)
+        res = fo1.generate(msgs, max_new_tokens=MM_NEW, stage_ms=stage)
+        n = fa.flash_attention.launches
+        want = n_full * len(plans) + layers
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[kind] = {"grids": [list(map(int, g)) for g in prep["grids"]],
+                     "vit_tokens_padded": [p.seq_pad for p in plans],
+                     "prompt_len": res.prompt_len, "stage_ms": stage,
+                     "peak_gib": peak, "flash_launches": n,
+                     "steps": res.num_steps}
+        sm.log(f"3B {kind} request: grids {out[kind]['grids']}, padded ViT "
+               f"tokens {out[kind]['vit_tokens_padded']}, prompt "
+               f"{res.prompt_len} tokens, {_stage_line(stage)} "
+               f"({res.num_steps} tokens), peak {peak:.2f} GiB, flash "
+               f"launches {n}")
+        sm.check(n == want and bool(np.isfinite(res.prefill_logits).all()),
+                 f"3B {kind} request: flash launches {n} == {want} "
+                 f"({n_full} per ViT encode x {len(plans)} + {layers}), "
+                 f"finite prefill logits")
+
+    # the two-image request, kernel path vs plain path at full width
+    prep = fo1.prepare(_mm_messages("two_images", 200, OD_template))
+    outs = {}
+    info = prep["splice"]
+    for name, attn in (("kernel", fa.flash_attention),
+                       ("plain", fa.flash_attention_reference)):
+        fo1.attention = attn
+        with torch.inference_mode():   # region rows for all 14 slots
+            vis, reg, _ = fo1._encode_one(prep)
+            emb = fo1._splice_one(info, vis, reg, info.seq_len)[None]
+        _, logits = fo1.prefill(prep, emb, info.seq_len + 1)
+        outs[name] = (vis.float(), reg.float(), logits.float())
+    fo1.attention = fa.flash_attention
+    for i, what in enumerate(("vision tokens", "region tokens",
+                              "prefill last-token logits")):
+        got, ref = outs["kernel"][i], outs["plain"][i]
+        err = (got - ref).abs().max().item()
+        rel = ((got - ref).norm() / ref.norm()).item()
+        bound = PATH_REL_TOL * max(1.0, ref.abs().max().item())
+        sm.check(err <= bound, f"3B two-image kernel path vs plain path, "
+                 f"{what}: max_abs_err={err:.3e} (bound {bound:.3e} = "
+                 f"{PATH_REL_TOL:g} x max(1, max|plain|)); relative L2 "
+                 f"{rel:.3e}")
+    del outs
+
+    # a mixed batch of 8 against each request alone
+    singles = [_messages(300 + i, OD_template) for i in range(4)]
+    batch = [singles[0], _mm_messages("two_images", 310, OD_template),
+             _mm_messages("video", 320, OD_template), singles[1],
+             singles[2], _mm_messages("two_images", 312, OD_template),
+             _mm_messages("video", 330, OD_template), singles[3]]
+    kinds = ["image", "two_images", "video", "image", "image",
+             "two_images", "video", "image"]
+    alone = [fo1.generate(m, max_new_tokens=MM_NEW) for m in batch]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches(fa.flash_attention)
+    t0 = time.perf_counter()
+    got = fo1.generate_batch(batch, max_new_tokens=MM_NEW)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    n = fa.flash_attention.launches
+    want = n_full * sum({"image": 1, "two_images": 2, "video": 1}[k]
+                        for k in kinds) + layers
+    rels = [_row_rel_np(g.prefill_logits, a.prefill_logits)
+            for g, a in zip(got, alone)]
+    agree = [int(sum(x == y for x, y in zip(g.token_ids[:MM_NEW],
+                                           a.token_ids[:MM_NEW])))
+             for g, a in zip(got, alone)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out["mixed_batch"] = {"kinds": kinds, "ms": batch_ms, "peak_gib": peak,
+                          "flash_launches": n, "row_rel": rels,
+                          "tokens_agree_of_32": agree,
+                          "prompt_lens": [r.prompt_len for r in got]}
+    sm.log(f"3B mixed batch of 8 ({kinds}): {batch_ms:.1f} ms (prepare "
+           f"included), prompts {out['mixed_batch']['prompt_lens']}, peak "
+           f"{peak:.2f} GiB, flash launches {n}; greedy tokens agreeing "
+           f"with the request alone, of {MM_NEW}: {agree}")
+    sm.check(n == want, f"3B mixed batch: flash launches {n} == {want}")
+    sm.check(max(rels) <= ROW_REL_TOL,
+             f"3B mixed batch: each row's prefill logits vs the request "
+             f"alone, relative L2 {max(rels):.3e} (bound {ROW_REL_TOL:g}); "
+             f"rows {[f'{r:.2e}' for r in rels]}")
+
+    # per-stage TFLOP/s of the phase-6 demo request
+    msgs = _messages(100, OD_template)
+    fo1.generate(msgs, max_new_tokens=MM_NEW, stage_ms={})   # captured
+    stage = {}
+    res = fo1.generate(msgs, max_new_tokens=MM_NEW, stage_ms=stage)
+    prep = fo1.prepare(msgs)
+    _, gh, gw = (int(g) for g in prep["grid"])
+    work = {
+        "encode": flops.encode_flops(cfg, gh, gw, len(prep["aux_boxes"])),
+        "prefill": flops.prefill_flops(cfg.text, res.prompt_len),
+        "decode": flops.decode_flops(cfg.text, res.num_steps - 1,
+                                     res.prompt_len),
+    }
+    rep = flops.mfu_report({k: (f, stage[k] / 1e3) for k, f in work.items()})
+    out["tflops_demo_request"] = rep
+    sm.log("3B demo request per stage (wall-clock stage ms, analytic FLOPs "
+           "of runtime/flops.py, against the H100 SXM dense bf16 peak "
+           f"{flops.H100_BF16_PEAK / 1e12:g} TFLOP/s): " + json.dumps(rep))
+    sm.check(all(rep[k]["tflop_s"] > 0 for k, f in work.items() if f > 0),
+             "3B demo request: a TFLOP/s for every stage that did work")
+    return out
+
+
+def phase_flash_video(sm, fa, build_vit_plan, vit_cfg):
+    """The flash kernel at the 8-frame video's ViT full-attention shape
+    (S = 22,528, D = 80, 16 heads, the plan's own kv_valid) in bf16 against
+    its plain version on sampled query rows of every head against all keys
+    (the whole plain attention would need [16, S, S] f32 logits, 32 GB),
+    with the row bound and the two planted faults of phase 2; the kernel and
+    scaled_dot_product_attention timed as CUDA graph replays beside the
+    bound, the plain version's time on the sampled rows."""
+    import torch.nn.functional as F
+
+    plan = build_vit_plan(VIDEO_GRID, vit_cfg)
+    valid = torch.from_numpy(plan.valid).cuda()
+    s, h, d = plan.seq_pad, vit_cfg.num_heads, vit_cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(1, h, s, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    kw = {"kv_valid": valid}
+    rows = valid.nonzero()[:, 0]
+    pick = rows[torch.randperm(len(rows), device="cuda",
+                               generator=gen)[:510]]
+    pick = torch.cat([rows[:1], pick, rows[-1:]]).sort().values
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_reference(q[:, :, pick].float(), k.float(),
+                                       v.float(), **kw)
+    got = out[:, :, pick].float()
+    err = (got - ref).abs().max().item()
+    rel = _row_rel(got, ref)
+    sm.check(bool(torch.isfinite(out).all()) and rel <= BF16_TOL,
+             f"flash vit_video bf16 S={s}: worst row relative L2 {rel:.3e} "
+             f"over {len(pick)} sampled query rows x {h} heads (tol "
+             f"{BF16_TOL:g}), max_abs_err {err:.3e}")
+    faults = {}
+    for fault, fkw in _planted_faults(kw, s):
+        fout = fa.flash_attention(q, k, v, **fkw)[:, :, pick]
+        faults[fault] = {"row_rel": _row_rel(fout, ref),
+                         "max_abs_err": (fout.float() - ref).abs().max()
+                         .item()}
+        sm.check(faults[fault]["row_rel"] > BF16_TOL,
+                 f"flash vit_video bf16 with the {fault}: worst row relative "
+                 f"L2 {faults[fault]['row_rel']:.3e} (must exceed "
+                 f"{BF16_TOL:g})")
+    del out, ref, fout
+    allowed = valid[None, :].expand(s, s).contiguous()
+    kernel = (lambda: fa.flash_attention(q, k, v, **kw))
+    sdpa = (lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   attn_mask=allowed))
+    ms = _graph_ms(kernel, [()])
+    lib_ms = _graph_ms(sdpa, [()])
+    eager_ms = _timeit(kernel)
+    plain_ms = _timeit(lambda: fa.flash_attention_reference(
+        q[:, :, pick], k, v, **kw))
+    n_valid = int(valid.sum().item())
+    flops = 4 * h * d * n_valid * n_valid
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+    res = {"shape": f"vit_video B=1 H={h} S={s} ({n_valid} valid) D={d} "
+                    f"bf16", "max_abs_err": err, "row_rel": rel,
+           "faults": faults, "ms": ms, "library_ms": lib_ms,
+           "eager_ms": eager_ms, "plain_ms_sampled_rows": plain_ms,
+           "plain_rows": len(pick), "bound_ms": bound_ms,
+           "bound_by": bound_by, "tflops": flops / ms / 1e9,
+           "bound_share": bound_ms / ms}
+    sm.log(f"time flash vit_video bf16 S={s}: kernel {ms:.4f} ms (eager "
+           f"calls {eager_ms:.4f} ms), scaled_dot_product_attention "
+           f"{lib_ms:.4f} ms, plain {plain_ms:.3f} ms for {len(pick)} "
+           f"sampled query rows (eager), bound {bound_ms:.4f} ms by "
+           f"{bound_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); "
+           f"kernel {flops / ms / 1e9:.1f} TFLOP/s, "
+           f"{100 * bound_ms / ms:.1f}% of the bound; CUDA graph replays")
+    return res
+
+
+def _fill_module(mod, seed):
+    """Every parameter of a CPU module drawn from a seeded generator: norm
+    weights 1 + 0.1 N(0, 1), everything else 0.05 N(0, 1)."""
+    from vlm_fo1_tpu_torch import nn as tnn
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in mod.modules():
+            for name, p in m.named_parameters(recurse=False):
+                x = torch.randn(p.shape, generator=gen)
+                if isinstance(m, tnn.LayerNorm) and name == "weight":
+                    p.copy_(1.0 + 0.1 * x)
+                else:
+                    p.copy_(0.05 * x)
+    return mod
+
+
+def _card_vs_cpu(sm, what, card, cpu, tol=F32_TOL):
+    got, ref = card.float().cpu(), cpu.float()
+    rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    err = (got - ref).abs().max().item()
+    sm.check(bool(torch.isfinite(got).all()) and rel <= tol,
+             f"{what}: card vs CPU f32 relative L2 {rel:.3e} (tol {tol:g}), "
+             f"max_abs_err {err:.3e}, shape {tuple(got.shape)}")
+    return rel
+
+
+def phase_hfre_variants(sm, fo1, OD_template, hfre, projector):
+    """Every HFRE variant on the phase-6 request's own DaViT stage maps and
+    ViT captures (taken from the bf16 model, held in f32), and the
+    CAbstractor and TokenPacker at the trunk's widths: the card against the
+    CPU in f32, each module's parameters drawn from a seeded generator. The
+    mean combinations need equal path widths: they take the first three
+    captured levels (3 x 1280 = 3840 channels, the aux width)."""
+    import copy
+    import dataclasses
+
+    from vlm_fo1_tpu_torch.models.vit import captures_to_feature_map
+
+    cfg = fo1.cfg
+    prep = fo1.prepare(_messages(100, OD_template))
+    n = len(prep["aux_boxes"])
+    with torch.inference_mode():
+        enc = fo1._stack_batch_inputs([prep])
+        patches, aux = fo1._normalize(enc["patches"], enc["aux"])
+        rc, rs, valid, iu, it = enc["plan_arrays"]
+        _, captures = fo1.vision_tower(patches, rc, rs, valid,
+                                       num_windows=enc["num_windows"],
+                                       inv_unit_idx=iu,
+                                       attention=fo1.attention)
+        vt_map = captures_to_feature_map(captures, it, enc["grid"],
+                                         cfg.vision.spatial_merge_size)[0]
+        maps = [m[0].float() for m in fo1.vision_tower_aux(aux)]
+    vt_map = vt_map.float()
+    aux_b = enc["aux_boxes"][0][:n].float()
+    vt_b = enc["vt_boxes"][0][:n].float()
+    aux_w = sum(cfg.hfre.aux_region_feature_dims)
+    base = cfg.hfre
+    variants = {}
+    for comb in ("concat", "concat_aux_pos", "concat_sep_pos",
+                 "concat_sep_no_vt_pos", "mean", "mean_aux_pos",
+                 "mean_sep_pos", "mean_sep_no_vt_pos"):
+        variants[comb] = {"region_feature_combination": comb}
+    variants.update({
+        "feature_map_pos": {"pos_embedding_strategy": "feature_map_based"},
+        "hybrid_pos": {"pos_embedding_strategy": "hybrid"},
+        "no_pos": {"apply_position_embedding": False},
+        "vt_only": {"use_vt_region_feature_only": True},
+        "aux_only": {"use_vision_tower_region_feature": False},
+        "region_layer_norms": {"apply_region_layer_norm": True},
+        "simple_fpn_norms": {"use_simple_fpn_for_vt": True,
+                             "apply_region_layer_norm": True},
+    })
+    rels, t0 = {}, time.perf_counter()
+    for i, (name, kw) in enumerate(variants.items()):
+        mean = kw.get("region_feature_combination", "").startswith("mean")
+        vt = vt_map[..., :aux_w] if mean else vt_map
+        vt_dim = 2048 if kw.get("use_simple_fpn_for_vt") else vt.shape[-1]
+        if kw.get("use_vt_region_feature_only") or mean:
+            out_dim = vt_dim
+        elif kw.get("use_vision_tower_region_feature") is False:
+            out_dim = aux_w
+        else:
+            out_dim = aux_w + vt_dim
+        vcfg = dataclasses.replace(base, vt_region_feature_dim=vt_dim,
+                                   region_feature_dim=out_dim, **kw)
+        cpu_mod = _fill_module(hfre.HFRE(vcfg, vt.shape[-1]), 40 + i)
+        card_mod = copy.deepcopy(cpu_mod).cuda()
+        with torch.inference_mode():
+            got = card_mod(maps, aux_b, vt, vt_b)
+            ref = cpu_mod([m.cpu() for m in maps], aux_b.cpu(), vt.cpu(),
+                          vt_b.cpu())
+        rels[name] = _card_vs_cpu(sm, f"HFRE {name} ({n} boxes, region "
+                                  f"width {out_dim})", got, ref)
+    with torch.inference_mode():   # one pre-concatenated aux map
+        cat = hfre.upsample_concat_aux([m[None] for m in maps])[0]
+        got = hfre.hfre_forward(base, cat, aux_b, vt_map, vt_b)
+        ref = hfre.hfre_forward(base, cat.cpu(), aux_b.cpu(), vt_map.cpu(),
+                                vt_b.cpu())
+    rels["preconcatenated_aux"] = _card_vs_cpu(
+        sm, "HFRE pre-concatenated aux map", got, ref)
+    sm.log(f"HFRE variants: {len(rels)} in {time.perf_counter() - t0:.1f} s")
+
+    gen = torch.Generator().manual_seed(50)
+    d_in, d_out = cfg.mm_hidden_size, cfg.text.hidden_size
+    x = torch.randn(1, 576, d_in, generator=gen)
+    xm = torch.randn(1, 576, 4 * d_in, generator=gen)
+    for kind, args, kwargs in (("cabstract", (x,), {}),
+                               ("tokenpacker", ((x, xm),),
+                                {"raw_grid": 24})):
+        cpu_mod = _fill_module(projector.build_projector(kind, d_in, d_out),
+                               51)
+        card_mod = copy.deepcopy(cpu_mod).cuda()
+        card_args = tuple(tuple(t.cuda() for t in a) if isinstance(a, tuple)
+                          else a.cuda() for a in args)
+        with torch.inference_mode():
+            got = card_mod(*card_args, **kwargs)
+            ref = cpu_mod(*args, **kwargs)
+        rels[kind] = _card_vs_cpu(sm, f"{kind} projector {d_in} -> {d_out}",
+                                  got, ref)
+    return rels
+
+
+def phase_eval_runners(sm, fo1, runners, coco_map, seed):
+    """The evaluation runners over the 3B model on records fabricated from
+    `seed` in a temporary directory under build/: 16 CountBench items (3-12
+    boxes) at batch 1, 8 and pipelined 8 with equal predictions, and 8 COCO
+    images with proposals and scores through eval_coco and
+    score_coco_files; items/s for each."""
+    import os
+    import shutil
+    import tempfile
+
+    from PIL import Image
+
+    os.makedirs("build", exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="eval_", dir="build")
+    try:
+        rng = np.random.default_rng(seed)
+        names = [f"im{i}.jpg" for i in range(8)]
+        for i, name in enumerate(names):
+            size = (966, 1288) if i % 2 == 0 else (768, 1024)
+            Image.fromarray(rng.integers(0, 256, (*size, 3), np.uint8)).save(
+                os.path.join(tmp, name))
+
+        def boxes(k, size=(966, 1288)):
+            xy = rng.uniform(0, min(size) / 2, (k, 2))
+            wh = rng.uniform(20, min(size) / 2, (k, 2))
+            return np.concatenate([xy, xy + wh], 1).round(1).tolist()
+
+        count = []
+        for i in range(16):
+            a = int(rng.integers(3, 13))
+            count.append({"question": "How many oranges are there?",
+                          "answer": a, "image": names[i % 8],
+                          "bboxes": boxes(a),
+                          "scores": rng.uniform(0.3, 0.9, a).round(3)
+                          .tolist()})
+        cpath = os.path.join(tmp, "countbench.json")
+        with open(cpath, "w") as f:
+            json.dump(count, f)
+        rows, anns = [], []
+        for i in range(8):
+            k = int(rng.integers(5, 21))
+            bl = boxes(k)
+            rows.append({"id": i, "image": names[i], "bbox_list": bl,
+                         "score_list": rng.uniform(0.3, 0.9, k).round(3)
+                         .tolist(),
+                         "conversations": [{"value": "Please detect cat."}]})
+            anns += [{"image_id": i, "category_id": 1 + j % 2,
+                      "bbox": [b[0], b[1], b[2] - b[0], b[3] - b[1]],
+                      "iscrowd": 0} for j, b in enumerate(bl[::2])]
+        epath = os.path.join(tmp, "coco.jsonl")
+        with open(epath, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        apath = os.path.join(tmp, "instances.json")
+        with open(apath, "w") as f:
+            json.dump({"images": [{"id": i} for i in range(8)],
+                       "annotations": anns,
+                       "categories": [{"id": 1, "name": "cat"},
+                                      {"id": 2, "name": "dog"}]}, f)
+        out, preds = {}, {}
+        for name, bs, piped in (("countbench_b1", 1, False),
+                                ("countbench_b8", 8, False),
+                                ("countbench_pipelined_b8", 8, True)):
+            t0 = time.perf_counter()
+            r = runners.eval_countbench(fo1, cpath, tmp, max_new_tokens=16,
+                                        verbose=False, batch_size=bs,
+                                        pipelined=piped)
+            dt = time.perf_counter() - t0
+            preds[name] = r["predictions"]
+            out[name] = {"items_per_s": r["total"] / dt, "s": dt,
+                         "accuracy": r["accuracy"]}
+            sm.log(f"eval_countbench batch {bs}{' pipelined' if piped else ''}"
+                   f": {r['total']} items in {dt:.2f} s, "
+                   f"{r['total'] / dt:.2f} items/s, predictions "
+                   f"{r['predictions']}")
+        sm.check(len(set(map(tuple, preds.values()))) == 1
+                 and len(preds["countbench_b1"]) == 16,
+                 "eval_countbench: equal predictions at batch 1, 8 and "
+                 "pipelined 8")
+        t0 = time.perf_counter()
+        res = runners.eval_coco(fo1, epath, apath, tmp,
+                                os.path.join(tmp, "pred.json"),
+                                max_new_tokens=16, batch_size=8)
+        dt = time.perf_counter() - t0
+        metrics = coco_map.score_coco_files(os.path.join(tmp, "pred.json"),
+                                            apath)
+        out["coco_b8"] = {"items_per_s": 8 / dt, "s": dt,
+                          "records": len(res), "AP": metrics["AP"]}
+        sm.log(f"eval_coco batch 8: 8 images in {dt:.2f} s, {8 / dt:.2f} "
+               f"items/s, {len(res)} records; score_coco_files: "
+               + json.dumps(metrics))
+        sm.check(len(metrics) == 12 and all(np.isfinite(list(
+            metrics.values()))), "eval_coco + score_coco_files: 12 finite "
+                                 "metrics")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the evaluation runners' fabricated records")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from vlm_fo1_tpu_torch.config import FO1Config
+    from vlm_fo1_tpu_torch.evaluation import coco_map, runners
+    from vlm_fo1_tpu_torch.models import hfre, projector
     from vlm_fo1_tpu_torch import quant
     from vlm_fo1_tpu_torch.models.fo1 import FO1Model
     from vlm_fo1_tpu_torch.ops import cuda_lib, msda
@@ -2537,7 +3028,7 @@ def main():
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
     from vlm_fo1_tpu_torch.runtime import generate as gen
-    from vlm_fo1_tpu_torch.runtime import serving
+    from vlm_fo1_tpu_torch.runtime import flops, serving
     from vlm_fo1_tpu_torch.runtime.fallback_tokenizer import (
         FallbackTokenizer,
     )
@@ -2570,6 +3061,10 @@ def main():
     # phases 2-3: kernels vs their plain versions
     flash_err, flash_times = phase_flash(sm, fa, build_vit_plan,
                                          FO1Config().vision)
+    # phase 27: the flash kernel at the 8-frame video's ViT shape
+    flash_video = phase_flash_video(sm, fa, build_vit_plan,
+                                    FO1Config().vision)
+    torch.cuda.empty_cache()
     msda_err = phase_msda(sm, msda)
 
     # phases 4-5: tiny f32, card vs cpu
@@ -2592,6 +3087,14 @@ def main():
     serve, serve_launches, flash_b8 = phase_serving_3b(
         sm, fo1, upn, fa, msda, gen, serving, OD_template)
     sm.log("3B bf16 serving: " + json.dumps(serve))
+    # phase 26: multi-image and video prompts, a mixed batch, TFLOP/s
+    multimodal = phase_multimodal_3b(sm, fo1, fa, OD_template, flops)
+    sm.log("3B multimodal: " + json.dumps(multimodal))
+    # phase 28: the HFRE variants and projectors, card vs CPU in f32
+    phase_hfre_variants(sm, fo1, OD_template, hfre, projector)
+    # phase 29: the evaluation runners on fabricated records
+    evals = phase_eval_runners(sm, fo1, runners, coco_map, args.seed)
+    sm.log("evaluation runners: " + json.dumps(evals))
     del fo1, upn
     torch.cuda.empty_cache()
 
@@ -2665,6 +3168,10 @@ def main():
         "launches_serving_path": {
             w: c["flash_attention"] for w, c in serve_launches.items()},
         "batched_prefill_b8": flash_b8,
+        "video": flash_video,
+        "launches_multimodal": {
+            k: multimodal[k]["flash_launches"]
+            for k in ("two_images", "video", "mixed_batch")},
     }, {
         "name": "ms_deform_attn_core", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda.cu",

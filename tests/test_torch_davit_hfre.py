@@ -98,11 +98,24 @@ def test_hfre_forward_zero_boxes():
 
 
 def test_hfre_unported_variants_raise():
+    """Every variant of the JAX module is ported (test_torch_hfre_variants
+    .py); a combination that neither package knows raises in both."""
     import dataclasses
 
-    cfg = dataclasses.replace(CFG.hfre, region_feature_combination="mean")
+    rng = np.random.default_rng(3)
+    dims = CFG.davit.embed_dims
+    aux_maps = [rand(rng, 24 >> i, 24 >> i, c) for i, c in enumerate(dims)]
+    vt_map = rand(rng, 12, 20, CFG.hfre.vt_region_feature_dim)
     with pytest.raises(NotImplementedError):
-        hfre_forward(cfg, [], None, None, None)
+        jax_hfre({}, dataclasses.replace(JCFG.hfre,
+                                         region_feature_combination="max"),
+                 [jnp.asarray(m) for m in aux_maps], jnp.asarray(BOXES),
+                 jnp.asarray(vt_map), jnp.asarray(BOXES))
+    cfg = dataclasses.replace(CFG.hfre, region_feature_combination="max")
+    with pytest.raises(NotImplementedError):
+        hfre_forward(cfg, [torch.from_numpy(m) for m in aux_maps],
+                     torch.from_numpy(BOXES), torch.from_numpy(vt_map),
+                     torch.from_numpy(BOXES))
 
 
 @pytest.mark.parametrize("kind", ["mlp2x_gelu", "mlp3x_gelu", "linear",
@@ -124,8 +137,14 @@ def test_projector(kind):
 
 
 def test_unported_projectors_raise():
+    """CAbstractor and TokenPacker are ported (test_torch_hfre_variants.py);
+    a type that neither package knows raises in both."""
     for kind in ("cabstract", "tokenpacker"):
-        with pytest.raises(NotImplementedError):
+        assert isinstance(build_projector(kind, 8, 8), torch.nn.Module)
+    for kind in ("mlp_gelu", "resampler"):
+        with pytest.raises(ValueError):
+            init_projector_params(jax.random.PRNGKey(0), kind, 8, 8)
+        with pytest.raises(ValueError):
             build_projector(kind, 8, 8)
 
 

@@ -9,6 +9,7 @@ the last prompt token forever, and equal greedy tokens would prove nothing.
 The tied head is covered by test_torch_llm.py."""
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -147,11 +148,13 @@ def test_stop_sequence_matches(models):
 
 def test_port_and_example_never_import_jax(tmp_path):
     """Importing every module of the port (the training modules, the MSDA
-    microbenchmarks, the serving pipelines, the checkpoint loader, the API
-    and the tower builders named explicitly) and running the port's
-    examples on the CPU (the FO1 one also in the int4 mode, one training
-    step with a checkpoint, and a batch of three through serve_torch.py)
-    loads neither JAX nor the JAX package."""
+    microbenchmarks, the serving pipelines, the checkpoint loader, the API,
+    the tower builders, the HFRE variants, SimpleFPN, the projectors, the
+    evaluation runners and COCO scorer, the FLOP counts and the profiler
+    named explicitly), running the port's examples on the CPU (the FO1 one
+    also in the int4 mode, one training step with a checkpoint, and a batch
+    of three through serve_torch.py) and the evaluation runners' `score`
+    command loads neither JAX nor the JAX package."""
     runs = [
         ("inference_torch.py", ["--max-new-tokens", "2", "--output",
                                 str(tmp_path / "fo1.jpg")]),
@@ -164,6 +167,14 @@ def test_port_and_example_never_import_jax(tmp_path):
                             str(tmp_path / "ckpt")]),
         ("serve_torch.py", ["--requests", "3", "--max-new-tokens", "2"]),
     ]
+    pred, ann = str(tmp_path / "pred.json"), str(tmp_path / "ann.json")
+    with open(ann, "w") as f:
+        json.dump({"images": [{"id": 1}], "categories": [{"id": 7}],
+                   "annotations": [{"image_id": 1, "category_id": 7,
+                                    "bbox": [0, 0, 10, 10]}]}, f)
+    with open(pred, "w") as f:
+        json.dump([{"image_id": 1, "category_id": 7, "bbox": [0, 0, 10, 10],
+                    "score": 0.9}], f)
     code = (
         "import importlib, pkgutil, runpy, sys\n"
         "import vlm_fo1_tpu_torch as pkg\n"
@@ -174,11 +185,18 @@ def test_port_and_example_never_import_jax(tmp_path):
         "msda_micro\n"
         "from vlm_fo1_tpu_torch import api, checkpoint\n"
         "from vlm_fo1_tpu_torch.models import builder\n"
-        "from vlm_fo1_tpu_torch.runtime import graphs, serving\n"
+        "from vlm_fo1_tpu_torch.runtime import flops, graphs, profiler, "
+        "serving\n"
+        "from vlm_fo1_tpu_torch.models import hfre, projector, simple_fpn\n"
+        "from vlm_fo1_tpu_torch.evaluation import coco_map, runners\n"
         f"for script, extra in {runs!r}:\n"
         "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
         " + extra\n"
         "    runpy.run_path('examples/' + script, run_name='__main__')\n"
+        f"sys.argv = ['runners', 'score', '--pred-path', {pred!r}, "
+        f"'--ann-path', {ann!r}]\n"
+        "runpy.run_module('vlm_fo1_tpu_torch.evaluation.runners', "
+        "run_name='__main__')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'vlm_fo1_tpu'))\n"
         "assert not bad, bad\n"
@@ -192,3 +210,4 @@ def test_port_and_example_never_import_jax(tmp_path):
     assert "proposals above" in out.stdout
     assert "step_1" in out.stdout and (tmp_path / "ckpt" / "step_1").is_dir()
     assert "batch: 3 requests" in out.stdout
+    assert "(AP) @[ IoU=0.50:0.95 | area=   all ] = 1.000" in out.stdout

@@ -58,7 +58,8 @@ def port_config(jax_cfg):
 def jax_fo1_params(state_dict, jax_cfg):
     """A port FO1 state dict (the checkpoint's names under the port's tower
     prefixes) -> the JAX FO1 parameter tree in f32, through the JAX
-    package's own checkpoint converters. Much faster than the JAX
+    package's own checkpoint converters (the HFRE's parameters through
+    `jax_hfre_params`). Much faster than the JAX
     `random_init` for building both sides of a parity test."""
     import jax.numpy as jnp
 
@@ -83,6 +84,27 @@ def jax_fo1_params(state_dict, jax_cfg):
         "mm_projector_aux": convert_projector_params(
             strip_prefix(sd, "mm_projector_aux."),
             jax_cfg.mm_projector_aux_type),
-        "hfre": {},
+        "hfre": jax_hfre_params(strip_prefix(sd, "object_vp_extractor.")),
     }
     return to_device_tree(params, jnp.float32)
+
+
+def jax_hfre_params(sd):
+    """A port `HFRE` state dict (numpy) -> the JAX HFRE tree: region
+    LayerNorms {"scale", "bias"} and the SimpleFPN's {"w", "b"} convs and
+    {"scale", "bias"} norms by level."""
+    hfre = {}
+    for name in ("aux_region_norm", "vt_region_norm"):
+        if f"{name}.weight" in sd:
+            hfre[name] = {"scale": sd[f"{name}.weight"],
+                          "bias": sd[f"{name}.bias"]}
+    fpn = {}
+    for key, value in sd.items():
+        if key.startswith("simple_fpn."):
+            _, level, node, leaf = key.split(".")
+            names = ("scale", "bias") if node.endswith("norm") else ("w", "b")
+            fpn.setdefault(level, {}).setdefault(node, {})[
+                names[leaf == "bias"]] = value
+    if fpn:
+        hfre["simple_fpn"] = fpn
+    return hfre

@@ -8,12 +8,14 @@ carry the checkpoint's own state-dict names, so loading is a prefix map:
   model.vision_tower.image_tower.*      -> vision_tower.*
   model.vision_tower_aux.image_tower.*  -> vision_tower_aux.*
   model.mm_projector.* / model.mm_projector_aux.* -> mm_projector(_aux).*
-  model.object_vp_extractor.*           -> the HFRE (no parameters in the
-                                           released configuration)
+  model.object_vp_extractor.*           -> object_vp_extractor.* (the
+                                           HFRE's region LayerNorms; none
+                                           in the released configuration)
   model.* (embed_tokens, layers, norm)  -> text.*
   lm_head.*                             -> text.lm_head.*
 
-then one `load_state_dict(strict=True)`. Shards are read by the port's own
+then one `load_state_dict(strict=True)`. A region LayerNorm is applied only
+when the checkpoint holds it, as in the JAX loader (`fit_region_norms`). Shards are read by the port's own
 safetensors reader (`training.checkpointing.load_params_safetensors`): the
 `safetensors` package is not needed.
 """
@@ -32,7 +34,7 @@ _TOWERS = (
     ("model.vision_tower.image_tower.", "vision_tower."),
     ("model.mm_projector_aux.", "mm_projector_aux."),
     ("model.mm_projector.", "mm_projector."),
-    ("model.object_vp_extractor.", None),
+    ("model.object_vp_extractor.", "object_vp_extractor."),
     ("lm_head.", "text.lm_head."),
     ("model.", "text."),
 )
@@ -56,16 +58,11 @@ def strip_prefix(sd: dict, prefix: str) -> dict:
 
 
 def port_state_dict(sd: dict) -> dict:
-    """Checkpoint names -> the port's names (see the module docstring).
-    HFRE region LayerNorms (`model.object_vp_extractor.*`) raise: that HFRE
-    variant is not ported."""
+    """Checkpoint names -> the port's names (see the module docstring)."""
     out = {}
     for name, t in sd.items():
         for prefix, target in _TOWERS:
             if name.startswith(prefix):
-                if target is None:
-                    raise NotImplementedError(
-                        f"{name}: HFRE region LayerNorms are not ported yet")
                 out[target + name[len(prefix):]] = t
                 break
         else:
@@ -73,11 +70,29 @@ def port_state_dict(sd: dict) -> dict:
     return out
 
 
+def fit_region_norms(model, sd: dict) -> dict:
+    """The JAX HFRE applies a region LayerNorm only when the checkpoint
+    holds it (`"aux_region_norm" in params`) and the config asks for it:
+    a norm of the model that `sd` lacks is removed from the model, and a
+    norm in `sd` that the model's config does not apply is dropped from
+    `sd`. Returns the state dict to load."""
+    hfre = model.object_vp_extractor
+    for name in ("aux_region_norm", "vt_region_norm"):
+        prefix = f"object_vp_extractor.{name}."
+        present = any(k.startswith(prefix) for k in sd)
+        if getattr(hfre, name, None) is None:
+            sd = {k: v for k, v in sd.items() if not k.startswith(prefix)}
+        elif not present:
+            setattr(hfre, name, None)
+    return sd
+
+
 def load_fo1_checkpoint(model_path: str, model) -> "torch.nn.Module":
     """Load a released checkpoint directory into `model` (an `FO1Model`
     built from the same config.json): every parameter must be present and
-    no key may be left over. Floating tensors are cast to the model's
-    dtype by the copy. Returns the model."""
+    no key may be left over, but for the region LayerNorms
+    (`fit_region_norms`). Floating tensors are cast to the model's dtype
+    by the copy. Returns the model."""
     sd = port_state_dict(load_safetensors_dir(model_path))
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(fit_region_norms(model, sd), strict=True)
     return model

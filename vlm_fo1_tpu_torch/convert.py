@@ -9,6 +9,9 @@ layouts, so loading a checkpoint is a prefix strip per tower:
   text.*              <- model.* (embed_tokens, layers, norm); text.lm_head
                          <- lm_head when untied
   mm_projector(_aux).* <- model.mm_projector(_aux).*
+  object_vp_extractor.* <- model.object_vp_extractor.* (the HFRE's region
+                         LayerNorms; its SimpleFPN under the JAX tree's
+                         names)
 
 From the JAX tree this unstacks the ViT's {"window": [G, W, ...],
 "full": [G, ...]} scan layout and the trunk's [L, ...] stack, transposes
@@ -154,19 +157,84 @@ def projector_state_dict(p: dict, projector_type: str) -> dict:
     if projector_type == "linear":
         _linear(sd, "", p["layers"][0])
         return sd
+    if projector_type == "cabstract":
+        return _cabstractor_state_dict(p)
+    if projector_type == "tokenpacker":
+        return _tokenpacker_state_dict(p)
     if not re.match(r"^mlp(\d+)x_gelu$", projector_type):
-        raise NotImplementedError(
-            f"projector {projector_type!r} is not ported yet")
+        raise ValueError(f"unknown projector type: {projector_type}")
     for k, lp in enumerate(p["layers"]):
         _linear(sd, str(2 * k), lp)
+    return sd
+
+
+def _cabstractor_state_dict(p: dict) -> dict:
+    """The JAX CAbstractor tree -> the reference names the JAX
+    `_convert_cabstractor` reads: `net.{0,2}.b{i}.{conv1,conv2,conv3,
+    downsample}.{conv,bn}`, `se.fc{1,2}`, `readout.{0,2,...}`, `pos_emb`,
+    `prenorm`."""
+    sd = {}
+    for net, blocks in ((0, p["s1"]), (2, p["s2"])):
+        for i, blk in enumerate(blocks):
+            b = f"net.{net}.b{i + 1}"
+            for conv, norm, name in (("conv1", "norm1", "conv1"),
+                                     ("conv2", "norm2", "conv2"),
+                                     ("conv3", "norm3", "conv3"),
+                                     ("down", "down_norm", "downsample")):
+                if conv in blk:
+                    _conv(sd, f"{b}.{name}.conv", blk[conv])
+                    _norm(sd, f"{b}.{name}.bn", blk[norm])
+            _conv(sd, f"{b}.se.fc1", blk["se_fc1"])
+            _conv(sd, f"{b}.se.fc2", blk["se_fc2"])
+    for k, lp in enumerate(p["readout"]):
+        _linear(sd, f"readout.{2 * k}", lp)
+    if "pos_emb" in p:
+        sd["pos_emb"] = _t(p["pos_emb"])
+    if "prenorm" in p:
+        _norm(sd, "prenorm", p["prenorm"])
+    return sd
+
+
+def _tokenpacker_state_dict(p: dict) -> dict:
+    """The JAX TokenPacker tree -> the reference names the JAX
+    `_convert_tokenpacker` reads, with torch MultiheadAttention's packed
+    `in_proj_weight` [3E, E] and `in_proj_bias`."""
+    sd = {}
+    _linear(sd, "q_proj_1", p["q_proj"])
+    for name, layers in (("k_proj_1", p["k_proj"]), ("v_proj_1", p["v_proj"]),
+                         ("mlp", p["mlp"])):
+        _linear(sd, f"{name}.0", layers[0])
+        _linear(sd, f"{name}.2", layers[1])
+    for name in ("ln_q", "ln_k", "ln_v"):
+        _norm(sd, f"{name}_1", p[name])
+    a = p["attn"]
+    sd["clip_attn.in_proj_weight"] = _t(np.concatenate(
+        [np.asarray(a[n]["w"]).T for n in ("in_q", "in_k", "in_v")]))
+    sd["clip_attn.in_proj_bias"] = _t(np.concatenate(
+        [np.asarray(a[n]["b"]) for n in ("in_q", "in_k", "in_v")]))
+    _linear(sd, "clip_attn.out_proj", a["out"])
+    return sd
+
+
+def hfre_state_dict(p: dict) -> dict:
+    """The JAX HFRE tree (region LayerNorms, SimpleFPN) -> the port's
+    `HFRE` state dict."""
+    sd = {}
+    for name in ("aux_region_norm", "vt_region_norm"):
+        if name in p:
+            _norm(sd, name, p[name])
+    for level, lp in p.get("simple_fpn", {}).items():
+        for name, node in lp.items():
+            if "scale" in node:
+                _norm(sd, f"simple_fpn.{level}.{name}", node)
+            else:
+                _conv(sd, f"simple_fpn.{level}.{name}", node)
     return sd
 
 
 def state_dict_from_jax_params(params_np: dict, cfg: FO1Config) -> dict:
     """The whole FO1 tree (`vlm_fo1_tpu.models.fo1.FO1Model.params`, leaves
     as numpy) -> `vlm_fo1_tpu_torch.models.fo1.FO1Model` state dict."""
-    if params_np.get("hfre"):
-        raise NotImplementedError("HFRE region LayerNorms are not ported yet")
     parts = {
         "vision_tower": vit_state_dict(params_np["vision_tower"], cfg.vision),
         "vision_tower_aux": davit_state_dict(params_np["vision_tower_aux"],
@@ -176,6 +244,7 @@ def state_dict_from_jax_params(params_np: dict, cfg: FO1Config) -> dict:
                                              cfg.mm_projector_type),
         "mm_projector_aux": projector_state_dict(
             params_np["mm_projector_aux"], cfg.mm_projector_aux_type),
+        "object_vp_extractor": hfre_state_dict(params_np.get("hfre", {})),
     }
     return {f"{prefix}.{k}": v for prefix, sd in parts.items()
             for k, v in sd.items()}

@@ -4,9 +4,10 @@ embedding splice -> Qwen2.5 trunk prefill -> greedy / top-p decode, for
 one request or a batch, and continuous-batching sessions.
 
 The host steps are the port's copies of the JAX package's host functions
-(`vlm_fo1_tpu_torch.preprocess`), composed here for single-image prompts
-(multi-image and video prompts are not ported yet); parsing the answer back
-to boxes is left to callers (`postprocess.extract_predictions_to_bboxes`).
+(`vlm_fo1_tpu_torch.preprocess`), composed here for prompts of one or more
+images and videos (the boxes attach to the first image); parsing the
+answer back to boxes is left to callers
+(`postprocess.extract_predictions_to_bboxes`).
 
 Host and device, and where the host waits:
   `prepare`       host only (numpy and PIL), safe in a thread pool;
@@ -25,7 +26,7 @@ runs this one. Sessions (`start_session`, `decode_session_chunk`,
 
 Submodules carry the checkpoint's tower names: `vision_tower`,
 `vision_tower_aux`, `text` (the trunk, `model.` in the checkpoint),
-`mm_projector`, `mm_projector_aux`.
+`mm_projector`, `mm_projector_aux`, `object_vp_extractor` (the HFRE).
 """
 
 from __future__ import annotations
@@ -55,9 +56,10 @@ from vlm_fo1_tpu_torch.preprocess.windowing import (
     pad_pixel_values,
 )
 from vlm_fo1_tpu_torch.models.davit import DaViT
-from vlm_fo1_tpu_torch.models.hfre import hfre_forward
+from vlm_fo1_tpu_torch.models.hfre import HFRE
 from vlm_fo1_tpu_torch.models.llm import TextModel
-from vlm_fo1_tpu_torch.models.projector import build_projector
+from vlm_fo1_tpu_torch.models.projector import CAbstractor, build_projector
+from vlm_fo1_tpu_torch.models.simple_fpn import Deconv2x
 from vlm_fo1_tpu_torch.models.vit import (
     VisionTransformer,
     captures_to_feature_map,
@@ -87,6 +89,17 @@ DUMMY_BOX = np.array([[0.0, 10.0, 0.0, 10.0]], np.float32)
 
 def _round_boxes(n: int) -> int:
     return max(BOX_BUCKET, -(-n // BOX_BUCKET) * BOX_BUCKET)
+
+
+def _region_slots(prep) -> int:
+    """Region rows a prep needs, at least 1: one per box, and one per
+    region slot of its prompt. The chat template puts a region slot per box
+    after every image, while the boxes belong to the first image, so a
+    prompt with a further image has more slots than boxes; the extra slots
+    take padding rows, which the JAX `encode` gives them too where its own
+    bucket of the box count has room (where it has not, JAX raises)."""
+    return max(len(prep["aux_boxes"]), len(prep["splice"].region_positions),
+               1)
 
 
 def _keys_cubic(x):
@@ -159,6 +172,9 @@ class FO1Model(nn.Module):
             self.mm_projector_aux = build_projector(
                 cfg.mm_projector_aux_type, cfg.mm_region_hidden_size,
                 cfg.text.hidden_size)
+            self.object_vp_extractor = HFRE(
+                cfg.hfre, cfg.vision.hidden_size
+                * len(cfg.vision.fullatt_block_indexes))
         self.to(dtype=dtype)
         self.to_empty(device=device)
         self.requires_grad_(False)
@@ -176,8 +192,16 @@ class FO1Model(nn.Module):
             for mod in model.modules():
                 if isinstance(mod, (tnn.RMSNorm, tnn.LayerNorm)):
                     mod.weight.fill_(1.0)
-                elif isinstance(mod, (tnn.Linear, tnn.Conv2d, tnn.Weight)):
+                elif isinstance(mod, (tnn.Linear, tnn.Conv2d, tnn.Weight,
+                                      Deconv2x)):
                     mod.weight.normal_(0.0, 0.02, generator=gen)
+                elif isinstance(mod, tnn.MultiheadAttention):
+                    mod.in_proj_weight.normal_(0.0, 0.02, generator=gen)
+                    mod.in_proj_bias.zero_()
+                elif isinstance(mod, CAbstractor) and mod.pos_emb is not None:
+                    mod.pos_emb.normal_(0.0, 0.02, generator=gen)
+                    seen.add(id(mod.pos_emb))
+                    continue
                 else:
                     continue
                 bias = getattr(mod, "bias", None)
@@ -215,63 +239,98 @@ class FO1Model(nn.Module):
     def prepare(self, messages: list[dict], max_pixels: int | None = None,
                 device_preproc: bool = False,
                 geometry_factor: int | None = None):
-        """Host preparation of a single-image prompt, as
-        `vlm_fo1_tpu.models.fo1.FO1Model.prepare` does it: ChatML tokens
-        with sentinels, shortest-edge resize with box rescale, the ViT
-        window plan, box transforms, token expansion and M-RoPE position
-        ids. By default the image goes as uint8 patch rows plus the uint8
-        768^2 aux squash; device_preproc=True ships the smart-resized uint8
-        image alone and the device patchifies it and makes the aux squash
-        (`_device_preproc`). geometry_factor snaps the smart resize to a
-        coarser multiple of 28 px, so mixed sizes share grids."""
+        """Host preparation, as `vlm_fo1_tpu.models.fo1.FO1Model.prepare`
+        does it: ChatML tokens with sentinels, the media slots in message
+        order (plain entries are images, `{"video": frames}` entries are
+        videos), the shortest-edge resize of every image with the boxes on
+        the first one, the ViT window plan of each slot, box transforms,
+        token expansion and M-RoPE position ids. Images go as uint8 patch
+        rows, videos as the float32 normalized rows of
+        `qwen_video_preprocess` (max_pixels or 1024^2). The aux squash and
+        the boxes exist only when the first slot is an image.
+        device_preproc=True (a single-image prompt only) ships the
+        smart-resized uint8 image alone and the device patchifies it and
+        makes the aux squash (`_device_preproc`). geometry_factor snaps an
+        image's smart resize to a coarser multiple of 28 px, so mixed sizes
+        share grids."""
         cfg = self.cfg
         prompt, tokens, media_urls, bbox_list = build_chat_tokens(
             self.tokenizer, messages)
         if not media_urls:
             raise ValueError("FO1 requires at least one image/video message")
-        if len(media_urls) != 1 or isinstance(media_urls[0], dict):
-            raise NotImplementedError(
-                "the PyTorch port handles prompts with exactly one image")
-        imgs, bbox_lists = pp.resize_shortest_edge_images_and_bboxes(
-            [pp.load_image(media_urls[0])], [list(bbox_list or [])],
-            max_size=cfg.max_image_long_side)
-        img, boxes = imgs[0], bbox_lists[0][:cfg.max_regions]
+        media = [("video", [pp.load_image(f) for f in u["video"]])
+                 if isinstance(u, dict) and "video" in u
+                 else ("image", pp.load_image(u)) for u in media_urls]
+        first_image_idx = next((i for i, (k, _) in enumerate(media)
+                                if k == "image"), None)
+        boxes = []
+        if first_image_idx is not None:
+            imgs = [m for k, m in media if k == "image"]
+            per_image = [list(bbox_list or [])] + [[] for _ in imgs[1:]]
+            imgs, bbox_lists = pp.resize_shortest_edge_images_and_bboxes(
+                imgs, per_image, max_size=cfg.max_image_long_side)
+            boxes = bbox_lists[0][:cfg.max_regions]
+            it = iter(imgs)
+            media = [(k, next(it) if k == "image" else m) for k, m in media]
+
         kw = dict(patch_size=cfg.vision.patch_size,
                   merge_size=cfg.vision.spatial_merge_size,
-                  min_pixels=cfg.min_pixels,
-                  max_pixels=max_pixels or cfg.max_pixels,
-                  round_factor=geometry_factor)
-        raw, pv, aux = None, None, None
-        if device_preproc:
-            raw, grid = pp.qwen_image_raw_u8(img, **kw)
+                  min_pixels=cfg.min_pixels)
+        raw_mode = (device_preproc and len(media) == 1
+                    and media[0][0] == "image")
+        pvs, grids, plans, slot_ids = [], [], [], []
+        raw = None
+        for kind, m in media:
+            if kind == "video":
+                pv, grid = pp.qwen_video_preprocess(
+                    m, **kw, max_pixels=max_pixels or 1024 * 1024)
+                slot_ids.append(cfg.video_token_id)
+            else:
+                img_kw = dict(kw, max_pixels=max_pixels or cfg.max_pixels,
+                              round_factor=geometry_factor)
+                if raw_mode:
+                    raw, grid = pp.qwen_image_raw_u8(m, **img_kw)
+                    pv = None
+                else:
+                    pv, grid = pp.qwen_image_patchify_u8(m, **img_kw)
+                slot_ids.append(cfg.image_token_id)
+            pvs.append(pv)
+            grids.append(grid)
+            plans.append(build_vit_plan(grid, cfg.vision))
+
+        aux = None
+        aux_boxes = np.zeros((0, 4), np.float32)
+        vt_boxes = aux_boxes
+        if first_image_idx == 0:
+            img, grid, size = media[0][1], grids[0], cfg.aux_image_size
+            if not raw_mode:
+                aux = pp.aux_image_u8(img, size)
+            w, h = img.size
+            aux_boxes = np.asarray(
+                pp.adjust_bbox(boxes, h, w, size, size) if boxes
+                else np.zeros((0, 4)), np.float32).reshape(-1, 4)
+            sx = grid[2] * cfg.vision.patch_size / size
+            sy = grid[1] * cfg.vision.patch_size / size
+            vt_boxes = aux_boxes * np.array([sx, sy, sx, sy], np.float32)
         else:
-            pv, grid = pp.qwen_image_patchify_u8(img, **kw)
-            aux = pp.aux_image_u8(img, cfg.aux_image_size)
-        plan = build_vit_plan(grid, cfg.vision)
-        w, h = img.size
-        size = cfg.aux_image_size
-        aux_boxes = np.asarray(
-            pp.adjust_bbox(boxes, h, w, size, size) if boxes
-            else np.zeros((0, 4)), np.float32).reshape(-1, 4)
-        sx = grid[2] * cfg.vision.patch_size / size
-        sy = grid[1] * cfg.vision.patch_size / size
-        vt_boxes = aux_boxes * np.array([sx, sy, sx, sy], np.float32)
-        info = expand_multimodal_tokens(tokens, [plan.num_units],
-                                        [cfg.image_token_id])
+            boxes = []
+        info = expand_multimodal_tokens(tokens, [p.num_units for p in plans],
+                                        slot_ids)
         pos_ids, deltas = pp.get_rope_index(
-            info.input_ids[None], [grid],
+            info.input_ids[None], grids,
             spatial_merge_size=cfg.vision.spatial_merge_size,
             image_token_id=cfg.image_token_id,
             video_token_id=cfg.video_token_id,
             vision_start_token_id=cfg.vision_start_token_id,
             tokens_per_second=cfg.vision.tokens_per_second,
-            second_per_grid_ts=[])
+            second_per_grid_ts=[1.0] * sum(k == "video" for k, _ in media))
         return {
-            "prompt": prompt, "bbox_list": boxes, "pixel_values": pv,
-            "raw_image": raw, "grid": grid, "plan": plan, "grids": [grid],
-            "plans": [plan], "first_is_image": True, "aux": aux,
-            "aux_boxes": aux_boxes, "vt_boxes": vt_boxes, "splice": info,
-            "position_ids": pos_ids, "rope_deltas": deltas,
+            "prompt": prompt, "media": media, "bbox_list": boxes,
+            "pixel_values": pvs[0], "raw_image": raw, "grid": grids[0],
+            "plan": plans[0], "pixel_values_list": pvs, "grids": grids,
+            "plans": plans, "first_is_image": first_image_idx == 0,
+            "aux": aux, "aux_boxes": aux_boxes, "vt_boxes": vt_boxes,
+            "splice": info, "position_ids": pos_ids, "rope_deltas": deltas,
         }
 
     # ---------------------------------------------------- device inputs
@@ -308,15 +367,20 @@ class FO1Model(nn.Module):
     def _normalize(self, patches, aux):
         """uint8 patch rows and aux images -> the /255, mean, std affine in
         f32 on the device, cast to the model dtype (the JAX
-        `_normalize_on_device`)."""
+        `_normalize_on_device`). Float rows (a video's, normalized on the
+        host) are only cast."""
         cfg = self.cfg
-        if patches is not None:
+        if patches is not None and patches.dtype != torch.uint8:
+            patches = patches.to(self.dtype)
+        elif patches is not None:
             mean, std = (self._const(("patch_norm", i), lambda i=i: (
                 qwen_patch_norm_vectors(cfg.vision.patch_size,
                                         cfg.vision.temporal_patch_size)[i],
                 torch.float32)) for i in (0, 1))
             patches = ((patches.float() / 255.0 - mean) / std).to(self.dtype)
-        if aux is not None:
+        if aux is not None and aux.dtype != torch.uint8:
+            aux = aux.to(self.dtype)
+        elif aux is not None:
             aux = self._aux_normalize(aux.float() / 255.0)
         return patches, aux
 
@@ -363,12 +427,11 @@ class FO1Model(nn.Module):
         from PIL import Image
 
         cfg = self.cfg
+        pv = pp.patchify_raw_np(prep["raw_image"], cfg.vision.patch_size,
+                                cfg.vision.spatial_merge_size,
+                                cfg.vision.temporal_patch_size)
         return dict(
-            prep, raw_image=None,
-            pixel_values=pp.patchify_raw_np(
-                prep["raw_image"], cfg.vision.patch_size,
-                cfg.vision.spatial_merge_size,
-                cfg.vision.temporal_patch_size),
+            prep, raw_image=None, pixel_values=pv, pixel_values_list=[pv],
             aux=pp.aux_image_u8(Image.fromarray(prep["raw_image"]),
                                 cfg.aux_image_size))
 
@@ -377,7 +440,7 @@ class FO1Model(nn.Module):
         rows and aux images, or the raw images with the cached window-pad
         gather, and the boxes padded with dummies to one bucket."""
         plan, grid = preps[0]["plan"], preps[0]["grid"]
-        nb = _round_boxes(max(max(len(p["aux_boxes"]) for p in preps), 1))
+        nb = _round_boxes(max(_region_slots(p) for p in preps))
 
         def padded(boxes):
             return np.concatenate(
@@ -428,19 +491,47 @@ class FO1Model(nn.Module):
                                           cfg.vision.spatial_merge_size)
         stage_maps = self.vision_tower_aux(aux)
         region = torch.stack([
-            hfre_forward(cfg.hfre, [m[i] for m in stage_maps],
-                         enc["aux_boxes"][i], vt_maps[i],
-                         enc["vt_boxes"][i])
+            self.object_vp_extractor([m[i] for m in stage_maps],
+                                     enc["aux_boxes"][i], vt_maps[i],
+                                     enc["vt_boxes"][i])
             for i in range(patches.shape[0])])
         region_tokens = self.mm_projector_aux(region.to(vision_tokens.dtype))
         return vision_tokens, region_tokens
 
+    @torch.inference_mode()
+    def _encode_image_only(self, pixel_values, grid, plan):
+        """Vision tokens [U, D] of a further image or a video of a
+        multi-slot prompt: the ViT and `mm_projector` only (the JAX
+        `_encode_image_only`)."""
+        rot_cos, rot_sin, valid, inv_unit, _ = self._device_plan(grid, plan)
+        patches, _ = self._normalize(
+            self._upload(pad_pixel_values(pixel_values, plan)[None]), None)
+        tokens, _ = self.vision_tower(
+            patches, rot_cos, rot_sin, valid, num_windows=plan.num_windows,
+            inv_unit_idx=inv_unit, attention=self.attention)
+        return self.mm_projector(tokens)[0]
+
     def _encode_one(self, prep: dict):
         """One prep alone -> (vision_tokens [U, D], region_padded [nb, D],
-        nb)."""
-        enc = self._stack_batch_inputs([self._host_prep(prep)])
-        vision, region = self._encode_batched(enc)
-        return vision[0], region[0], enc["nb"]
+        nb). A first image takes the region path; every further image and
+        video the ViT and projector alone, its tokens concatenated in slot
+        order. When the first slot is a video, the region rows are nb rows
+        of zeros."""
+        prep = self._host_prep(prep)
+        slots = list(zip(prep["pixel_values_list"], prep["grids"],
+                         prep["plans"]))
+        if prep.get("first_is_image", True):
+            enc = self._stack_batch_inputs([prep])
+            vision, region = self._encode_batched(enc)
+            parts, region, nb = [vision[0]], region[0], enc["nb"]
+            slots = slots[1:]
+        else:
+            nb = _round_boxes(_region_slots(prep))
+            region = torch.zeros(nb, self.cfg.text.hidden_size,
+                                 dtype=self.dtype, device=self.device)
+            parts = []
+        parts += [self._encode_image_only(*slot) for slot in slots]
+        return torch.cat(parts) if len(parts) > 1 else parts[0], region, nb
 
     @torch.inference_mode()
     def encode(self, prep: dict):
@@ -452,7 +543,9 @@ class FO1Model(nn.Module):
     @torch.inference_mode()
     def splice(self, prep: dict, vision_tokens, region_tokens):
         """Token embeddings with the vision and region features scattered
-        into their slots -> [1, S, D]."""
+        into their slots -> [1, S, D]. region_tokens needs a row per region
+        slot of the prompt: `encode`'s rows for a single-image prompt, the
+        padded rows of `_encode_one` for a prompt with a further image."""
         info = prep["splice"]
         return self._splice_one(info, vision_tokens, region_tokens,
                                 info.seq_len)[None]

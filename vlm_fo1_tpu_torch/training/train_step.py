@@ -24,7 +24,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vlm_fo1_tpu_torch.models.hfre import hfre_forward
 from vlm_fo1_tpu_torch.models.llm import causal_attention, mrope_cos_sin
 from vlm_fo1_tpu_torch.models.vit import captures_to_feature_map
 from vlm_fo1_tpu_torch.ops.flash_attention import (
@@ -116,8 +115,9 @@ def multimodal_lm_loss(model, batch: dict, *, num_windows: int, grid,
     stage_maps = model.vision_tower_aux(t["aux_image"])
     embeds = []
     for b in range(vis.shape[0]):
-        feats = hfre_forward(cfg.hfre, [m[b] for m in stage_maps],
-                             t["aux_boxes"][b], vt_map[b], t["vt_boxes"][b])
+        feats = model.object_vp_extractor(
+            [m[b] for m in stage_maps], t["aux_boxes"][b], vt_map[b],
+            t["vt_boxes"][b])
         reg = model.mm_projector_aux(feats.to(vis.dtype))
         # out-of-place scatters: the token rows they replace take no
         # gradient, as with the JAX `.at[].set`
