@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
   1. build the nine CUDA kernels from the checkout's sources, one nvcc
-     each, started together;
+     each, started together, and the native host helper
+     (native/preproc.cpp -> build/libfo1_preproc.so, g++);
   2. flash attention vs its plain PyTorch version on the card: every mask
      mode and GQA at small shapes, then the two main-path shapes (ViT full
      attention S=6912 D=80 with the real 68x92 window-plan mask; trunk
@@ -192,7 +193,33 @@ Phases (any failure exits non-zero and prints no result line):
  29. (after phase 28) the evaluation runners over the 3B model on records
      fabricated from --seed (default 0) under build/: 16 CountBench items
      (3-12 boxes) at batch 1, 8 and pipelined 8 with equal predictions, 8
-     COCO images through eval_coco and score_coco_files; items/s each.
+     COCO images through eval_coco and score_coco_files; items/s each;
+ 30. (after phase 29) the demo request's prepare on the native C++ path
+     (counted by native.calls), qwen_image_preprocess,
+     aux_image_preprocess and qwen_image_patchify_u8 on a 1288x966 image
+     within 1e-6 of their numpy path, stage_ms["prepare"] of the demo
+     request native and numpy over 2 x 5 calls each, in turns;
+ 31. (after phase 30) the phase-6 3B model on the demo prompt padded to a
+     multiple of 4: prefill_sequence_parallel over an in-process world-1
+     NCCL group and over a LocalRing of 4 chunks (the ring's 4-step
+     arithmetic in one process) against prefill; in f32 (an f32 copy of
+     the trunk) last-token logits and the prompt's K/V rows to 2e-4
+     relative L2; in bf16 no farther (x 1.25) from the f32 prefill than
+     the bf16 prefill, the distance to the bf16 prefill printed beside the
+     bf16 floor (prefill with the plain attention against the kernel's);
+     ms of each (second run); 32 greedy tokens decoded from the SP cache and
+     from the dense cache through the decode graphs, their agreement
+     printed; then the same with the trunk's MLPs as fused int4 SwiGLUs, 36
+     launches in the SP prefill and in prefill;
+ 32. (after phase 31) python -m vlm_fo1_tpu_torch.parallel.dryrun at world =
+     the visible cards on NCCL: the tiny DP x TP suite (serving tokens equal
+     to dense, SP prefill, train loss) and one 3B grounding request
+     TP-sharded over (1, world), four times (decode from graphs with the
+     collectives captured, and eager, in turns), against the same request
+     dense, all staged (prefill logits to 2e-2 relative L2; at world 1
+     every run's tokens equal the dense ones; each run's token agreement
+     and the flash launches printed); the world size is printed, and at
+     world 1 the groups are of size 1.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -3002,6 +3029,275 @@ def phase_eval_runners(sm, fo1, runners, coco_map, seed):
     return out
 
 
+# ------------------------------------ native prepare and the parallel layer
+
+def phase_native_prepare(sm, fo1, native, pim, OD_template):
+    """Phase 30: the demo request's prepare on the native C++ path
+    (counted), the three native functions within 1e-6 of their numpy path
+    at the demo geometry, and stage_ms["prepare"] both ways over five
+    calls."""
+    msgs = _messages(100, OD_template)
+    native.calls.update(native=0, numpy=0)
+    fo1.prepare(msgs)
+    calls = dict(native.calls)
+    sm.check(calls["native"] >= 1 and calls["numpy"] == 0,
+             f"native prepare: the demo request's prepare took the C++ path "
+             f"({calls})")
+    img = _synthetic_image(100)
+    errs = {}
+    for name, fn in (("qwen_image_preprocess", pim.qwen_image_preprocess),
+                     ("aux_image_preprocess",
+                      lambda im: pim.aux_image_preprocess(
+                          im, fo1.cfg.aux_image_size)),
+                     ("qwen_image_patchify_u8", pim.qwen_image_patchify_u8)):
+        got = fn(img)
+        native.enabled = False
+        try:
+            want = fn(img)
+        finally:
+            native.enabled = True
+        if isinstance(got, tuple):
+            got, want = got[0], want[0]
+        errs[name] = float(np.abs(got.astype(np.float32)
+                                  - want.astype(np.float32)).max())
+        sm.check(got.shape == want.shape and errs[name] <= 1e-6,
+                 f"native {name} at 1288x966 {got.shape} {got.dtype}: "
+                 f"max_abs_err {errs[name]:.3e} vs numpy (<= 1e-6)")
+    # the layout transform alone (no resize), on the smart-resized image
+    raw, _ = pim.qwen_image_raw_u8(img)
+    lib = native.get_lib()
+    core = {}
+    for path, fn in (("native", lambda: native.qwen_patchify_raw_native(
+            lib, raw, 14, 2, 2)), ("numpy", lambda: pim.patchify_raw_np(raw)),
+                     ("native", lambda: native.qwen_patchify_raw_native(
+                         lib, raw, 14, 2, 2)),
+                     ("numpy", lambda: pim.patchify_raw_np(raw))):
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            core.setdefault(path, []).append(
+                (time.perf_counter() - t0) * 1e3)
+    core = {p: float(np.median(v)) for p, v in core.items()}
+    sm.log(f"native prepare: the raw patchify of the {raw.shape} image "
+           f"alone, median of 10 host calls: native {core['native']:.3f} "
+           f"ms, numpy {core['numpy']:.3f} ms")
+    ms = {}
+    for path, on in (("native", True), ("numpy", False), ("native", True),
+                     ("numpy", False)):
+        native.enabled = on
+        try:
+            runs = []
+            for _ in range(5):
+                stage = {}
+                fo1.generate(msgs, max_new_tokens=2, stage_ms=stage)
+                runs.append(stage["prepare"])
+        finally:
+            native.enabled = True
+        ms.setdefault(path, []).extend(runs)
+    out = {p: {"median_ms": float(np.median(v)), "runs_ms": v}
+           for p, v in ms.items()}
+    sm.log(f"native prepare: stage_ms['prepare'] of the demo request over "
+           f"2 x 5 calls each way in turns: native median "
+           f"{out['native']['median_ms']:.2f} ms, numpy median "
+           f"{out['numpy']['median_ms']:.2f} ms; {json.dumps(out)}")
+    return {"prepare_ms": out, "raw_patchify_ms": core, "max_abs_err": errs}
+
+
+def _sync_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def phase_sp_prefill(sm, fo1, gen, quant, fa, i4mlp, OD_template):
+    """Phase 31: the phase-6 3B model on the demo prompt padded to a
+    multiple of 4, through prefill_sequence_parallel over an in-process
+    world-1 NCCL group and over a LocalRing of 4 chunks, against prefill.
+    In f32 (an f32 copy of the trunk, the same embeddings) the last-token
+    logits and the prompt's K/V rows must agree to 2e-4 relative L2; in
+    bf16 each SP prefill must lie no farther (x 1.25) from the f32 prefill
+    than the bf16 prefill does. 32 greedy tokens are decoded from the SP
+    and the dense bf16 caches through the decode graphs. Then the same
+    with the trunk MLPs as fused int4 SwiGLUs (36 launches a prefill)."""
+    import torch.distributed as dist
+
+    from vlm_fo1_tpu_torch.parallel.dryrun import free_port
+    from vlm_fo1_tpu_torch.parallel.ring_attention import LocalRing
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        return _sp_prefill_runs(sm, fo1, gen, quant, fa, i4mlp, OD_template,
+                                LocalRing)
+    finally:
+        dist.destroy_process_group()
+
+
+def _prefill_runs(gen, text, tcfg, attention, emb, pos, seq, cache_len,
+                  groups, i4mlp):
+    """(cache, logits, ms, fused SwiGLU launches) of prefill and of each SP
+    group, each on its second run."""
+    runs = {}
+    with torch.inference_mode():
+        for name, group in groups:
+            if name == "prefill":
+                fn = functools.partial(gen.prefill, text, tcfg, emb, pos, seq,
+                                       cache_len, attention=attention)
+            else:
+                fn = functools.partial(gen.prefill_sequence_parallel, text,
+                                       tcfg, emb, pos, seq, cache_len, group)
+            for _ in range(2):
+                i4mlp.int4_mlp.launches = 0
+                (cache, logits), ms = _sync_ms(fn)
+            runs[name] = {"cache": cache, "logits": logits, "ms": ms,
+                          "int4_mlp_launches": i4mlp.int4_mlp.launches}
+    return runs
+
+
+def _kv_rel(a, b, s):
+    return max(_rel(a["cache"][k][:, :, :s], b["cache"][k][:, :, :s])
+               for k in ("k", "v"))
+
+
+def _sp_prefill_runs(sm, fo1, gen, quant, fa, i4mlp, OD_template,
+                     LocalRing):
+    import copy
+
+    text, tcfg = fo1.text, fo1.cfg.text
+    prep = fo1.prepare(_messages(100, OD_template))
+    with torch.inference_mode():
+        vis, reg = fo1.encode(prep)
+        emb = fo1.splice(prep, vis, reg)
+    s = emb.shape[1]
+    sp = -(-s // 4) * 4
+    emb = torch.nn.functional.pad(emb, (0, 0, 0, sp - s))
+    pos = np.zeros((3, 1, sp), np.int64)
+    pos[:, :, :s] = prep["position_ids"]
+    pos = fo1._upload(pos)
+    seq = torch.full((1,), s, device="cuda")
+    deltas = fo1._upload(np.asarray(prep["rope_deltas"]).reshape(1))
+    gen_cfg = gen.GenerationConfig(max_new_tokens=32, temperature=0.0,
+                                   eos_token_id=-1)
+    cache_len = sp + gen_cfg.max_new_tokens
+    groups = (("prefill", None), ("sp_nccl_world1", None),
+              ("sp_local_ring4", LocalRing(4)))
+    sp_names = [n for n, _ in groups[1:]]
+    out = {"prompt_len": s, "padded_len": sp}
+    for mode in ("bf16", "int4-mlp"):
+        if mode == "int4-mlp":
+            for layer in text.layers:
+                layer.mlp = quant.quantize_mlp_int4(layer.mlp)
+        gen.drop_programs(text)
+        # the same trunk in f32 (the int4 nodes' bytes and scales as they
+        # are): the ring's arithmetic at full width, free of bf16 rounding
+        t32 = copy.deepcopy(text).float()
+        runs = _prefill_runs(gen, text, tcfg, fo1.attention, emb, pos, seq,
+                             cache_len, groups, i4mlp)
+        r32 = _prefill_runs(gen, t32, tcfg, fo1.attention, emb.float(), pos,
+                            seq, cache_len, groups, i4mlp)
+        del t32
+        ref, ref32 = runs["prefill"], r32["prefill"]
+        dense_off = _rel(ref["logits"], ref32["logits"])
+        dense_kv_off = _kv_rel(ref, ref32, s)
+        res = {"prefill_ms": ref["ms"], "prefill_bf16_vs_f32": dense_off}
+        if mode == "bf16":
+            # two dense bf16 paths (the kernel's and the plain attention)
+            # differ by bf16 rounding alone: the floor for any other path
+            plain = _prefill_runs(gen, text, tcfg,
+                                  fa.flash_attention_reference, emb, pos,
+                                  seq, cache_len, groups[:1], i4mlp)
+            res["plain_vs_kernel_prefill"] = _rel(
+                plain["prefill"]["logits"], ref["logits"])
+            sm.log(f"SP prefill 3B bf16: prefill with the plain attention "
+                   f"against the kernel's: logits relative L2 "
+                   f"{res['plain_vs_kernel_prefill']:.3e} (the bf16 floor)")
+        for name in sp_names:
+            r, q = runs[name], r32[name]
+            f32 = (_rel(q["logits"], ref32["logits"]),
+                   _kv_rel(q, ref32, s))
+            sm.check(max(f32) <= 2e-4,
+                     f"SP prefill 3B {mode} {name} in f32: last-token logits "
+                     f"relative L2 {f32[0]:.3e}, prompt K/V rows {f32[1]:.3e}"
+                     f" against prefill (<= 2e-4)")
+            off = (_rel(r["logits"], ref32["logits"]), _kv_rel(r, ref32, s))
+            vs = (_rel(r["logits"], ref["logits"]), _kv_rel(r, ref, s))
+            sm.check(off[0] <= 1.25 * dense_off
+                     and off[1] <= 1.25 * dense_kv_off,
+                     f"SP prefill 3B {mode} {name} in bf16: from the f32 "
+                     f"prefill {off[0]:.3e} (logits) / {off[1]:.3e} (K/V), "
+                     f"no farther than x 1.25 the bf16 prefill's "
+                     f"{dense_off:.3e} / {dense_kv_off:.3e}; against the "
+                     f"bf16 prefill {vs[0]:.3e} / {vs[1]:.3e}; {r['ms']:.2f}"
+                     f" ms against prefill's {ref['ms']:.2f} ms")
+            res[name] = {"ms": r["ms"], "f32_logits_rel_l2": f32[0],
+                         "f32_kv_rel_l2": f32[1],
+                         "bf16_vs_f32_prefill": off[0],
+                         "bf16_logits_rel_l2_vs_prefill": vs[0],
+                         "bf16_kv_rel_l2_vs_prefill": vs[1],
+                         "int4_mlp_launches": r["int4_mlp_launches"]}
+        if mode == "int4-mlp":
+            n = runs["sp_nccl_world1"]["int4_mlp_launches"]
+            want = tcfg.num_hidden_layers
+            sm.check(n == want and ref["int4_mlp_launches"] == want,
+                     f"SP prefill 3B int4-mlp: fused SwiGLU launches {n} in "
+                     f"the SP prefill, {ref['int4_mlp_launches']} in "
+                     f"prefill (== {want})")
+        toks = {}
+        for name in ("prefill", "sp_nccl_world1"):
+            tokens, _ = gen.decode_loop(
+                text, tcfg, gen_cfg, runs[name]["cache"],
+                runs[name]["logits"], seq, deltas)
+            toks[name] = tokens[0].tolist()
+        agree = sum(a == b for a, b in zip(toks["prefill"],
+                                           toks["sp_nccl_world1"]))
+        res["decode_tokens_agree"] = agree
+        sm.log(f"SP prefill 3B {mode}: 32 greedy tokens from the SP cache "
+               f"through the decode graphs agree with those from the dense "
+               f"cache in {agree} of 32")
+        out[mode] = res
+    return out
+
+
+def phase_dryrun(sm):
+    """Phase 32: parallel/dryrun.py at world = the visible cards on NCCL
+    (the tiny suite and one 3B grounding request TP-sharded over
+    (1, world), decode graphs included)."""
+    world = torch.cuda.device_count()
+    path = "build/dryrun.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "vlm_fo1_tpu_torch.parallel.dryrun",
+         "--world", str(world), "--grounding-3b", "--json", path],
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        sm.log(f"dryrun: {line}")
+    ok = proc.returncode == 0
+    sm.check(ok, f"multi-chip suite at world {world} (NCCL, "
+             f"{'one rank: size-1 groups' if world == 1 else 'multi-rank'})"
+             f": exit {proc.returncode} in {secs:.1f} s"
+             + ("" if ok else f"\n{proc.stderr[-3000:]}"))
+    if not ok:
+        return {"world": world, "ok": False}
+    with open(path) as f:
+        res = json.load(f)
+    g = res["grounding_3b"]
+    sm.log(f"multi-chip suite: world size {res['world']}, mesh "
+           f"{res['mesh']}, 3B TP over (1, {g['model_axis']}): prefill "
+           f"logits relative L2 {g['logits_rel_l2']:.3e} against dense, "
+           f"greedy tokens that agree with dense in four runs "
+           f"({', '.join(g['decode'])}) {g['tokens_agree']} of "
+           f"{g['tokens']}, flash launches {g['flash_launches']}, stages "
+           f"{g['stage_ms']}")
+    return {"world": res["world"], "seconds": secs, **res}
+
+
 def main():
     import argparse
 
@@ -3012,6 +3308,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from vlm_fo1_tpu_torch import native
     from vlm_fo1_tpu_torch.config import FO1Config
     from vlm_fo1_tpu_torch.evaluation import coco_map, runners
     from vlm_fo1_tpu_torch.models import hfre, projector
@@ -3026,6 +3323,7 @@ def main():
     from vlm_fo1_tpu_torch.ops import msda_dma as md
     from vlm_fo1_tpu_torch.ops import msda_micro as mm
     from vlm_fo1_tpu_torch.postprocess import extract_predictions_to_bboxes
+    from vlm_fo1_tpu_torch.preprocess import image as pim
     from vlm_fo1_tpu_torch.preprocess.windowing import build_vit_plan
     from vlm_fo1_tpu_torch.runtime import generate as gen
     from vlm_fo1_tpu_torch.runtime import flops, serving
@@ -3057,6 +3355,10 @@ def main():
     sm.log("built in parallel: " + ", ".join(
         f"{n}.cu {s:.2f} s" for n, s in build_s.items())
         + f"; {time.perf_counter() - t0:.2f} s in all")
+    t0 = time.perf_counter()
+    sm.check(native.build() and native.get_lib() is not None,
+             f"built {native.library()} with g++ in "
+             f"{time.perf_counter() - t0:.2f} s (the native prepare path)")
 
     # phases 2-3: kernels vs their plain versions
     flash_err, flash_times = phase_flash(sm, fa, build_vit_plan,
@@ -3095,8 +3397,17 @@ def main():
     # phase 29: the evaluation runners on fabricated records
     evals = phase_eval_runners(sm, fo1, runners, coco_map, args.seed)
     sm.log("evaluation runners: " + json.dumps(evals))
+    # phase 30: the demo request's prepare on the native C++ path
+    native_prep = phase_native_prepare(sm, fo1, native, pim, OD_template)
+    # phase 31: sequence-parallel prefill at full width (last on the
+    # phase-6 model: its int4-mlp half quantizes the trunk's MLPs)
+    sp_prefill = phase_sp_prefill(sm, fo1, gen, quant, fa, i4mlp,
+                                  OD_template)
+    sm.log("3B SP prefill: " + json.dumps(sp_prefill))
     del fo1, upn
     torch.cuda.empty_cache()
+    # phase 32: the multi-chip suite at world = the visible cards
+    dryrun = phase_dryrun(sm)
 
     # phases 9-12: the quantized serving modes
     i4_err, i4_times = phase_int4_matmul(sm, quant, i4)
@@ -3172,6 +3483,10 @@ def main():
         "launches_multimodal": {
             k: multimodal[k]["flash_launches"]
             for k in ("two_images", "video", "mixed_batch")},
+        "launches_tp_path": {
+            "world": dryrun.get("world"),
+            "grounding_3b": dryrun.get("grounding_3b", {}).get(
+                "flash_launches")},
     }, {
         "name": "ms_deform_attn_core", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda.cu",
@@ -3210,6 +3525,11 @@ def main():
         "launches_serving_path": qlaunches["int4_mlp"],
         "graph_m8_bit_equal": i4_graph["int4_mlp"],
         "serving_b8": qserve["int4-mlp"],
+        "launches_sp_prefill": sp_prefill["int4-mlp"]["sp_nccl_world1"][
+            "int4_mlp_launches"],
+        "sp_prefill_ms": {k: sp_prefill["int4-mlp"][k]["ms"]
+                          for k in ("sp_nccl_world1", "sp_local_ring4")},
+        "prefill_ms": sp_prefill["int4-mlp"]["prefill_ms"],
     }, {
         "name": "msda_backward", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda_bwd.cu",

@@ -150,8 +150,9 @@ def test_port_and_example_never_import_jax(tmp_path):
     """Importing every module of the port (the training modules, the MSDA
     microbenchmarks, the serving pipelines, the checkpoint loader, the API,
     the tower builders, the HFRE variants, SimpleFPN, the projectors, the
-    evaluation runners and COCO scorer, the FLOP counts and the profiler
-    named explicitly), running the port's examples on the CPU (the FO1 one
+    evaluation runners and COCO scorer, the FLOP counts, the profiler, the
+    parallel layer and the native preprocessing helper named explicitly),
+    running the port's examples on the CPU (the FO1 one
     also in the int4 mode, one training step with a checkpoint, and a batch
     of three through serve_torch.py) and the evaluation runners' `score`
     command loads neither JAX nor the JAX package."""
@@ -189,6 +190,9 @@ def test_port_and_example_never_import_jax(tmp_path):
         "serving\n"
         "from vlm_fo1_tpu_torch.models import hfre, projector, simple_fpn\n"
         "from vlm_fo1_tpu_torch.evaluation import coco_map, runners\n"
+        "from vlm_fo1_tpu_torch.parallel import dryrun, multihost, "
+        "ring_attention, sharding\n"
+        "from vlm_fo1_tpu_torch import native\n"
         f"for script, extra in {runs!r}:\n"
         "    sys.argv = [script, '--random-init', 'tiny', '--device', 'cpu']"
         " + extra\n"

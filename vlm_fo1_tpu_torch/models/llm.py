@@ -17,6 +17,12 @@ steps can be captured as a CUDA graph (`runtime/graphs.py`). A call with no
 cache is the training forward: the whole sequence through `attention`
 (`causal_attention` there).
 
+`forward_ring` is the sequence-parallel trunk of
+`runtime.generate.prefill_sequence_parallel`. Under a model axis
+(`parallel.sharding.shard_model`) each attention holds its local heads
+(`nh`, `nkv`), the cache holds `kv_heads` of them, and `embed` / `logits`
+gather or sum over the axis.
+
 Parameters use the checkpoint's names: `embed_tokens.weight`,
 `layers.{i}.self_attn.{q,k,v,o}_proj`, `layers.{i}.mlp.*`, `norm.weight`,
 and `lm_head.weight` when the head is untied. The serving modes of `quant`
@@ -28,6 +34,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -66,9 +73,12 @@ def _apply_rope(x, cos, sin):
             + rot * sin[:, :, None, :].to(x.dtype))
 
 
-def init_kv_cache(cfg: TextConfig, batch, max_len, dtype, device):
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
-             cfg.head_dim)
+def init_kv_cache(cfg: TextConfig, batch, max_len, dtype, device,
+                  heads=None):
+    """A zeroed cache [L, B, C, Hkv, hd]; `heads` is the kv head count of
+    this rank (`TextModel.kv_heads`; the config's without a model axis)."""
+    heads = cfg.num_key_value_heads if heads is None else heads
+    shape = (cfg.num_hidden_layers, batch, max_len, heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -204,6 +214,20 @@ class TextModel(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = tnn.Linear(cfg.hidden_size, cfg.vocab_size,
                                       bias=False)
+        self.set_tensor_parallel(None)
+
+    def set_tensor_parallel(self, group, embed=False, head=None):
+        """The model axis (`parallel.sharding.shard_model` sets it): the
+        token table split over D when `embed`, and the head "dim" (the
+        tied table's D columns, partial logits summed) or "vocab" (an
+        untied head's rows, local logits gathered), or None."""
+        self.tp_group, self.tp_embed, self.tp_head = group, embed, head
+
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this rank holds (all of them without a model
+        axis)."""
+        return self.layers[0].self_attn.nkv
 
     def forward(self, hidden, cos, sin, kv_cache=None, offset=0,
                 attention=flash_attention, remat=False, mask=None):
@@ -232,18 +256,79 @@ class TextModel(nn.Module):
 
     def embed(self, ids):
         """Token rows; a row-int8 table dequantizes the gathered rows into
-        the model's compute dtype (the final norm's)."""
+        the model's compute dtype (the final norm's). A table split over D
+        gathers the rows' columns over the model axis."""
         if isinstance(self.embed_tokens, tnn.QEmbedding8):
-            return self.embed_tokens.lookup(ids, self.norm.weight.dtype)
-        return tnn.embedding(self.embed_tokens.weight, ids)
+            rows = self.embed_tokens.lookup(ids, self.norm.weight.dtype)
+        else:
+            rows = tnn.embedding(self.embed_tokens.weight, ids)
+        if self.tp_embed:
+            from vlm_fo1_tpu_torch.parallel.sharding import gather_from_model
 
-    def logits(self, hidden):
-        """[B, S, D] -> [B, S, V] fp32 logits (tied or untied head; int8
-        and int4 heads as the JAX package's `lm_head_logits`)."""
-        head = (self.embed_tokens if self.cfg.tie_word_embeddings
-                else self.lm_head)
+            rows = gather_from_model(rows, self.tp_group)
+        return rows
+
+    @staticmethod
+    def _head_product(hidden, head):
         if isinstance(head, (tnn.QEmbedding8, tnn.QLinear8)):
             return tnn.int8_head_logits(hidden, head.w_q, head.scale)
         if isinstance(head, tnn.QLinear4):
             return head(hidden.float())
         return F.linear(hidden.float(), head.weight.float())
+
+    def logits(self, hidden):
+        """[B, S, D] -> [B, S, V] fp32 logits (tied or untied head; int8
+        and int4 heads as the JAX package's `lm_head_logits`). Under a model
+        axis the f32 logits are summed over the D shards ("dim") or
+        gathered over the V shards ("vocab")."""
+        head = (self.embed_tokens if self.cfg.tie_word_embeddings
+                else self.lm_head)
+        if self.tp_head is None:
+            return self._head_product(hidden, head)
+        from vlm_fo1_tpu_torch.parallel.sharding import (
+            copy_to_model,
+            gather_from_model,
+            reduce_from_model,
+        )
+
+        group = self.tp_group
+        hidden = copy_to_model(hidden, group)
+        if self.tp_head == "vocab":
+            return gather_from_model(self._head_product(hidden, head), group)
+        n = hidden.shape[-1] // dist.get_world_size(group)
+        part = hidden.narrow(-1, dist.get_rank(group) * n, n)
+        return reduce_from_model(self._head_product(part, head), group)
+
+    def forward_ring(self, hidden, cos, sin, q_pos, kv_pos, kv_valid,
+                     group=None):
+        """The sequence-parallel trunk (the JAX `text_forward_ring`): hidden
+        [B, Sl, D], cos / sin [B, Sl, hd] and the global positions q_pos /
+        kv_pos and kv_valid [B, Sl] are this rank's chunk of the sequence
+        (for a `LocalRing`, every chunk stacked on the batch axis). Norms,
+        projections, rope and MLP are token-local; attention is
+        `parallel.ring_attention.ring_attention` over `group`. The MLP is
+        each layer's module, so an int4-mlp trunk runs the fused int4
+        SwiGLU kernel. Returns (final-normed hidden [B, Sl, D], k, v
+        [L, B, Sl, Hkv, hd])."""
+        from vlm_fo1_tpu_torch.parallel.ring_attention import ring_attention
+
+        x = hidden
+        ks, vs = [], []
+        for layer in self.layers:
+            if (isinstance(layer.mlp, Int4MLP)
+                    and self.cfg.hidden_act != "silu"):
+                raise ValueError("the fused int4 MLP computes SwiGLU only")
+            attn = layer.self_attn
+            b, s, _ = x.shape
+            h = layer.input_layernorm(x)
+            q = _apply_rope(attn.q_proj(h).reshape(b, s, attn.nh, attn.hd),
+                            cos, sin)
+            k = _apply_rope(attn.k_proj(h).reshape(b, s, attn.nkv, attn.hd),
+                            cos, sin)
+            v = attn.v_proj(h).reshape(b, s, attn.nkv, attn.hd)
+            out = ring_attention(q, k, v, q_pos, kv_pos, kv_valid, group)
+            x = x + attn.o_proj(out.reshape(b, s, attn.nh * attn.hd))
+            x = x + layer.mlp(layer.post_attention_layernorm(x))
+            ks.append(k)
+            vs.append(v)
+        return self.norm(x), torch.stack(ks), torch.stack(vs)

@@ -40,10 +40,14 @@ class VisionAttention(nn.Module):
         super().__init__()
         self.qkv = tnn.Linear(dim, 3 * dim)
         self.proj = tnn.Linear(dim, dim)
+        # the model axis the heads are split over
+        # (`parallel.sharding.shard_model`): this rank computes
+        # num_heads / tp of them
+        self.tp = 1
 
     def _qkv(self, x, shape):
-        d = x.shape[-1]
         qkv = self.qkv(x)
+        d = qkv.shape[-1] // 3
         return (qkv[..., :d].reshape(shape), qkv[..., d:2 * d].reshape(shape),
                 qkv[..., 2 * d:].reshape(shape))
 
@@ -51,6 +55,7 @@ class VisionAttention(nn.Module):
         """x [B, P, D]; cos/sin [W, T, hd]; mask [W, T, T] (True = attend)."""
         b, pad, d = x.shape
         hd = d // num_heads
+        num_heads //= self.tp
         w, t = num_windows, pad // num_windows
         q, k, v = self._qkv(x, (b, w, t, num_heads, hd))
         q = _apply_rotary(q, cos[None], sin[None])
@@ -59,19 +64,21 @@ class VisionAttention(nn.Module):
         logits = (logits * (1.0 / math.sqrt(hd))).to(x.dtype).float()
         logits = logits.masked_fill(~mask[None, :, None], tnn.MASK_FILL)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
-        out = torch.einsum("bwnqk,bwknh->bwqnh", probs, v).reshape(b, pad, d)
+        out = torch.einsum("bwnqk,bwknh->bwqnh", probs, v).reshape(
+            b, pad, num_heads * hd)
         return self.proj(out)
 
     def full(self, x, cos, sin, valid, num_heads, attention):
         """x [B, P, D]; cos/sin [P, hd]; valid [P] bool key mask."""
         b, pad, d = x.shape
         hd = d // num_heads
+        num_heads //= self.tp
         q, k, v = self._qkv(x, (b, pad, num_heads, hd))
         q = _apply_rotary(q, cos, sin).transpose(1, 2).contiguous()
         k = _apply_rotary(k, cos, sin).transpose(1, 2).contiguous()
         v = v.transpose(1, 2).contiguous()
         out = attention(q, k, v, kv_valid=valid)
-        return self.proj(out.transpose(1, 2).reshape(b, pad, d))
+        return self.proj(out.transpose(1, 2).reshape(b, pad, num_heads * hd))
 
 
 class VisionMLP(nn.Module):

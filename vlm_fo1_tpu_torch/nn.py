@@ -102,6 +102,10 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim)) if bias else None
 
+    def product(self, x):
+        """The product without the bias."""
+        return F.linear(x, self.weight)
+
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
@@ -168,11 +172,14 @@ class QLinear8(nn.Module):
         self.register_buffer("a8", None)
         self.bias = bias
 
-    def forward(self, x):
+    def product(self, x):
+        """The product without the bias."""
         if self.a8 is not None and x.dim() >= 2 and x.shape[-2] > 1:
-            y = w8a8_matmul(x, self.w_q, self.scale)
-        else:
-            y = F.linear(x, self.w_q.to(x.dtype)) * self.scale.to(x.dtype)
+            return w8a8_matmul(x, self.w_q, self.scale)
+        return F.linear(x, self.w_q.to(x.dtype)) * self.scale.to(x.dtype)
+
+    def forward(self, x):
+        y = self.product(x)
         return y if self.bias is None else y + self.bias
 
 

@@ -1,5 +1,10 @@
-"""Host-side image preprocessing (pure numpy/PIL), the port's own copy of
-`vlm_fo1_tpu/preprocess/image.py` with only its numpy code paths.
+"""Host-side image preprocessing (numpy/PIL and the native C++ helper), the
+port's own copy of `vlm_fo1_tpu/preprocess/image.py`.
+
+`qwen_image_preprocess`, `aux_image_preprocess` and `qwen_image_patchify_u8`
+take the fused C++ pass of `vlm_fo1_tpu_torch.native` where the JAX package
+does, and their numpy path only without g++ (or with `native.enabled`
+False); `native.calls` counts which ran. Videos stay on numpy, as in JAX.
 
 Mirrors the behavioural contract of the reference pipeline:
 - load_image / base64 / URL handling  (reference mm_utils.py:183-213)
@@ -21,6 +26,8 @@ from io import BytesIO
 
 import numpy as np
 from PIL import Image
+
+from vlm_fo1_tpu_torch import native
 
 # OpenAI-CLIP statistics used by the Qwen2-VL image processor.
 QWEN_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -173,6 +180,14 @@ def qwen_image_preprocess(
     img = image.resize((w_bar, h_bar), Image.Resampling.BICUBIC)
     raw = np.asarray(img, np.uint8)
 
+    lib = native.active()
+    if lib is not None:  # fused normalize + patchify in one pass
+        native.calls["native"] += 1
+        return (native.qwen_patchify_native(
+            lib, raw, patch_size, merge_size, temporal_patch_size,
+            QWEN_IMAGE_MEAN, QWEN_IMAGE_STD),
+            (1, h_bar // patch_size, w_bar // patch_size))
+    native.calls["numpy"] += 1
     arr = _normalize(raw, QWEN_IMAGE_MEAN, QWEN_IMAGE_STD)
     chw = arr.transpose(2, 0, 1)  # [C, H, W]
 
@@ -236,6 +251,12 @@ def aux_image_preprocess(image: Image.Image, image_size: int = 768) -> np.ndarra
     img = image.resize((image_size, image_size), Image.Resampling.BICUBIC)
     raw = np.asarray(img, np.uint8)
 
+    lib = native.active()
+    if lib is not None:
+        native.calls["native"] += 1
+        return native.normalize_chw_native(lib, raw, AUX_IMAGE_MEAN,
+                                           AUX_IMAGE_STD)
+    native.calls["numpy"] += 1
     arr = _normalize(raw, AUX_IMAGE_MEAN, AUX_IMAGE_STD)
     return arr.transpose(2, 0, 1)
 
@@ -282,6 +303,13 @@ def qwen_image_patchify_u8(
     img = image.resize((w_bar, h_bar), Image.Resampling.BICUBIC)
     raw = np.asarray(img, np.uint8)
 
+    lib = native.active()
+    if lib is not None:
+        native.calls["native"] += 1
+        return (native.qwen_patchify_raw_native(
+            lib, raw, patch_size, merge_size, temporal_patch_size),
+            (1, h_bar // patch_size, w_bar // patch_size))
+    native.calls["numpy"] += 1
     chw = raw.transpose(2, 0, 1)
     frames = np.broadcast_to(chw, (temporal_patch_size, *chw.shape))
     grid_h, grid_w = h_bar // patch_size, w_bar // patch_size

@@ -15,6 +15,9 @@ static KV cache of C slots with an explicit mask, as the JAX programs do:
                 `row_max`, the tail of stop n-grams) is a vector;
   sample_first, prefill_into_slots, decode_step: the session pieces.
 
+`prefill_sequence_parallel` fills the same cache from a prompt cut into
+chunks over a ring of ranks (ring attention).
+
 A run of steps is a `DecodeProgram`: static buffers (cache, tokens, current
 token, counters, done flags) and `steps` masked steps over them, captured as
 one CUDA graph on the card (`runtime/graphs.py`) and replayed; the host
@@ -79,12 +82,54 @@ def prefill(text: TextModel, cfg: TextConfig, embeds, position_ids, seq_lens,
     Returns (kv_cache, last-token logits [B, V] fp32)."""
     b, sp, d = embeds.shape
     if cache is None:
-        cache = init_kv_cache(cfg, b, cache_len, embeds.dtype, embeds.device)
+        cache = init_kv_cache(cfg, b, cache_len, embeds.dtype, embeds.device,
+                              text.kv_heads)
     else:
         cache["k"].zero_()
         cache["v"].zero_()
     cos, sin = mrope_cos_sin(position_ids, cfg)
     hidden = text(embeds, cos, sin, cache, 0, attention)
+    last = hidden.gather(1, (seq_lens.long() - 1).view(b, 1, 1).expand(b, 1, d))
+    return cache, text.logits(last)[:, 0]
+
+
+@torch.no_grad()
+def prefill_sequence_parallel(text: TextModel, cfg: TextConfig, embeds,
+                              position_ids, seq_lens, cache_len, group=None):
+    """Sequence-parallel prefill (the JAX `prefill_sequence_parallel`): the
+    padded prompt embeds [B, Sp, D] is cut into one chunk per rank of
+    `group` (a process group, None for the default one, or a
+    `parallel.ring_attention.LocalRing` that holds every chunk in this
+    process), the trunk runs `TextModel.forward_ring` with ring attention,
+    and the K/V chunks are all-gathered into a cache of `cache_len` slots
+    laid out as `prefill`'s. Every rank passes the same arguments and gets
+    the same (kv_cache, last-token logits [B, V] fp32), so the decode loop
+    and its graphs continue from it unchanged. Sp must divide by the ring's
+    size. The trunk's weights are whole on every rank of the ring."""
+    from vlm_fo1_tpu_torch.parallel.ring_attention import as_ring
+
+    ring = as_ring(group)
+    b, sp, d = embeds.shape
+    n = ring.size
+    if sp % n:
+        raise ValueError(f"padded prompt length {sp} does not split into "
+                         f"{n} chunks")
+    sl = sp // n
+    cos, sin = mrope_cos_sin(position_ids, cfg)
+    pos = torch.arange(sp, device=embeds.device).expand(b, sp)
+    valid = pos < seq_lens.view(b, 1)
+
+    def chunks(x):  # [B, Sp, ...] -> this process's chunks stacked on B
+        return torch.cat([x[:, c * sl:(c + 1) * sl] for c in ring.chunks])
+
+    hidden, ks, vs = text.forward_ring(
+        chunks(embeds), chunks(cos), chunks(sin), chunks(pos), chunks(pos),
+        chunks(valid), ring)
+    cache = init_kv_cache(cfg, b, cache_len, embeds.dtype, embeds.device,
+                          text.kv_heads)
+    cache["k"][:, :, :sp] = ring.gather(ks, 1).to(cache["k"].dtype)
+    cache["v"][:, :, :sp] = ring.gather(vs, 1).to(cache["v"].dtype)
+    hidden = ring.gather(hidden, 0)
     last = hidden.gather(1, (seq_lens.long() - 1).view(b, 1, 1).expand(b, 1, d))
     return cache, text.logits(last)[:, 0]
 
@@ -204,7 +249,8 @@ class DecodeProgram:
         def longs(*shape, fill=0):
             return torch.full(shape, fill, dtype=torch.long, device=dev)
 
-        self.cache = init_kv_cache(cfg, b, cache_len, dtype, dev)
+        self.cache = init_kv_cache(cfg, b, cache_len, dtype, dev,
+                                   text.kv_heads)
         self.k_pos = torch.arange(cache_len, device=dev)
         self.cur = longs(b, fill=gen_cfg.pad_token_id)
         self.done = torch.ones(b, dtype=torch.bool, device=dev)

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vlm_fo1_tpu_torch.models.llm import causal_attention, mrope_cos_sin
@@ -38,6 +39,9 @@ from vlm_fo1_tpu_torch.preprocess.windowing import pad_pixel_values
 
 IGNORE = -100
 _FLOAT_KEYS = ("patches", "aux_image")
+# arrays with a batch axis (position_ids has it second)
+_ROW_KEYS = ("patches", "aux_image", "aux_boxes", "vt_boxes", "input_ids",
+             "image_positions", "region_positions", "labels")
 _INDEX_KEYS = ("inv_unit_idx", "inv_token_idx", "input_ids",
                "image_positions", "region_positions", "position_ids",
                "labels")
@@ -96,12 +100,41 @@ def batch_from_prepared(cfg, prep: dict) -> dict:
     }
 
 
+def local_batch(batch: dict, rows: slice) -> dict:
+    """The rows of a global batch that one data rank trains on
+    (`parallel.sharding.data_rows`): every batch-indexed array cut along
+    its batch axis (position_ids along its second), the plan arrays
+    whole."""
+    out = {}
+    for k, v in batch.items():
+        if k == "position_ids":
+            v = v[:, rows]
+        elif k in _ROW_KEYS:
+            v = v[rows]
+        out[k] = v
+    return out
+
+
+def _global_mean(ce_sum, count, data_group):
+    """The token mean over every data rank: the sums and the counts are
+    all-reduced separately (never a mean of per-rank means). Its value is
+    the global loss on every rank; its gradient is this rank's share, so
+    gradients summed over the data axis are those of the global loss."""
+    if data_group is None:
+        return ce_sum / count.clamp(min=1)
+    tot = torch.stack([ce_sum.detach(), count.to(ce_sum.dtype)])
+    dist.all_reduce(tot, group=data_group)
+    return (ce_sum + (tot[0] - ce_sum.detach())) / tot[1].clamp(min=1)
+
+
 def multimodal_lm_loss(model, batch: dict, *, num_windows: int, grid,
-                       remat: bool = False):
+                       remat: bool = False, data_group=None):
     """Cross-entropy of next-token prediction over the spliced multimodal
     sequence, as the JAX `multimodal_lm_loss`: f32 logits, mean over the
     labels that are not -100. `model` is a `models.fo1.FO1Model`; `batch`
-    as in the module docstring. Returns a 0-dim float32 tensor."""
+    as in the module docstring. With `data_group` (the mesh's "data"
+    group) `batch` holds this rank's rows and the mean runs over the
+    labels of every data rank. Returns a 0-dim float32 tensor."""
     cfg = model.cfg
     t = _to_device(batch, model.device, model.dtype)
     tokens, captures = model.vision_tower(
@@ -134,7 +167,8 @@ def multimodal_lm_loss(model, batch: dict, *, num_windows: int, grid,
     valid = labels != IGNORE
     ce = F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
                          labels.clamp(min=0).reshape(-1), reduction="none")
-    return (ce * valid.reshape(-1)).sum() / valid.sum().clamp(min=1)
+    return _global_mean((ce * valid.reshape(-1)).sum(), valid.sum(),
+                        data_group)
 
 
 def adamw(params, lr: float = 1e-4):
@@ -145,19 +179,40 @@ def adamw(params, lr: float = 1e-4):
                              weight_decay=1e-4)
 
 
+def all_reduce_grads(model, group):
+    """Sum every parameter gradient over `group`, one flat buffer per
+    dtype."""
+    by_dtype = {}
+    for p in model.parameters():
+        if p.grad is not None:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
 def make_train_step(model, optimizer, *, num_windows: int, grid,
-                    remat: bool = False):
+                    remat: bool = False, data_group=None):
     """Returns train_step(batch) -> loss (a detached 0-dim tensor): zero the
     gradients, the loss, its backward, one optimizer step. The caller turns
     on the gradients of the parameters to train (the model's constructor
     freezes all). remat=True recomputes the ViT window blocks and every
-    trunk layer in the backward pass."""
+    trunk layer in the backward pass. Under a mesh the model is sharded
+    over "model" (`parallel.sharding.shard_model`), `batch` holds this
+    rank's rows (`local_batch`), `data_group` is the "data" group: the
+    loss is the global token mean and the gradients are all-reduced over
+    "data" before the optimizer step."""
 
     def train_step(batch):
         optimizer.zero_grad(set_to_none=True)
         loss = multimodal_lm_loss(model, batch, num_windows=num_windows,
-                                  grid=grid, remat=remat)
+                                  grid=grid, remat=remat,
+                                  data_group=data_group)
         loss.backward()
+        if data_group is not None:
+            all_reduce_grads(model, data_group)
         optimizer.step()
         return loss.detach()
 
