@@ -48,30 +48,32 @@ Phases (any failure exits non-zero and prints no result line):
      nms=0.8) go into one 3B grounding request (the phase-6 model); both
      kernels' launches counted over this path;
  9. the int4 matmul vs its plain version: odd small shapes and tile
-     edges (M in {1, 5, 9, 63, 64, 65, 77, 127, 128, 129}, K/2 off the
-     64-row tile, K = 11008, N off every tile, x at a 48-byte and an 8-byte
-     offset), each asserting its route (streaming for M <= 8; bf16 x on the
-     TMA/wgmma tiles where every row stride is a multiple of 16 bytes, else
-     the mma.sync tiles; f32 x on the FMA tiles), in f32 with TF32 off
-     (<= 2e-5 x max(1, max|plain|)) and bf16 (<= 2e-2 x the same), and the
-     worst relative L2 error of one output row segment (one row of one
-     128-column tile; <= 1e-4 f32, <= 1e-2 bf16), two runs bit-equal; then
-     the 3B trunk shapes (q/o 2048->2048, k/v 2048->256, gate/up
-     2048->11008, down 11008->2048) at M = 1 and M = 1771 the same way,
-     M = 1771 on the TMA route, three planted faults run through the plain
+     edges (M in {1, 2, 3, 4, 5, 6, 7, 8, 9, 63, 64, 65, 77, 127, 128,
+     129}, K/2 off the 64-row tile, K = 11008, N off every tile (24, 130),
+     x at byte offsets 4, 8 and 48), each asserting its route (streaming
+     for M <= 8; bf16 x on the TMA/wgmma tiles where every row stride is a
+     multiple of 16 bytes, else the mma.sync tiles; f32 x on the FMA
+     tiles), in f32 with TF32 off (<= 2e-5 x max(1, max|plain|)) and bf16
+     (<= 2e-2 x the same), and the worst relative L2 error of one output
+     row segment (one row of one 128-column tile; <= 1e-4 f32, <= 1e-2
+     bf16), two runs bit-equal; then the 3B trunk shapes (q/o 2048->2048,
+     k/v 2048->256, gate/up 2048->11008, down 11008->2048) at M = 1, 2, 4,
+     8 (the bf16 streaming route, one launch a call) and M = 1771 (the TMA
+     route) the same way, three planted faults run through the plain
      version (a 64-packed-row K tile zeroed, the nibbles of one column tile
      swapped, one column tile's scales shifted by a column) that must
      exceed the segment bound, and kernel, plain and F.linear
      (pre-dequantized bf16 weight) device times from CUDA graph replays
-     beside the bound, and the kernel's eager per-call time; at M = 1 the
+     beside the bound, and the kernel's eager per-call time; at M <= 8 the
      weights rotate through copies larger than the L2 cache, as decode
      finds them;
  10. the fused int4 SwiGLU vs its plain version the same way: the shapes of
-     tests/test_quant.py and tile edges (M in {9, 63, 64, 65, 127, 129},
-     D/2 off the tile, x at a 48-byte offset, one shape on the mma.sync
-     tiles), routes asserted for both products, then D = 2048, I = 11008 at
-     M = 1 and 1771 with the planted faults in the down weight, two runs
-     bit-equal, kernel / plain / three-F.linear times;
+     tests/test_quant.py and tile edges (M in {1, ..., 8, 9, 63, 64, 65,
+     127, 129}, D/2 off the tile, I = 24 and 130, x at byte offsets 4, 8
+     and 48, one shape on the mma.sync tiles), routes asserted for both
+     products, then D = 2048, I = 11008 at M = 1, 2, 4, 8 and 1771 with
+     the planted faults in the down weight, two runs bit-equal, kernel /
+     plain / three-F.linear times;
  11. FO1Config.tiny() f32 (untied head) in the int4 mode, and with I = 128
      in the int4-mlp mode: greedy tokens on the card (kernels) equal those
      on the CPU (plain versions), the same quantized bytes on both;
@@ -155,15 +157,17 @@ Phases (any failure exits non-zero and prints no result line):
      four main-path runs (batch, two pipelines, UPN -> FO1), zeroed just before
      it and read just after;
  24. (after phase 10) the int4 matmul on the four trunk shapes and the
-     fused SwiGLU at D = 2048, I = 11008, M = 8, captured in a CUDA graph
-     and replayed: bit-equal to eager, streaming route, and within the
-     bf16 bounds of the plain version;
+     fused SwiGLU at D = 2048, I = 11008, M = 1, 2, 4 and 8, captured in a
+     CUDA graph and replayed: bit-equal to eager, streaming route, and
+     within the bf16 bounds of the plain version; the device kernels of
+     one M = 8 call from torch.profiler (one a matmul, two a fused MLP);
  25. (after phase 12) the 3B model in the int4 and int4-mlp modes: the
      first demo request alone and a batch of 8 (prefill on the TMA tiles,
      decode streaming from the decode graph), graph decode equal to eager
      decode at B = 1 and 8, the batch's launches the int4 modules once
-     per forward the device ran, and the decode ms a step at B = 8, eager
-     and from graphs;
+     per forward the device ran, the decode ms a step at B = 1 and 8,
+     eager and from graphs, and the first request's 32-token decode stage
+     from its kept graph;
  26. (after phase 23) the phase-6 3B bf16 model on multi-slot prompts: a
      two-image request (two 1288x966 synthetic images, the 7 demo boxes on
      the first) and a video request (8 synthetic 1288x966 frames: grid
@@ -1010,16 +1014,22 @@ def _fault_readings(sm, what, plain, ref, faults, bound):
     return out
 
 
-# (M, K, N, byte offset of x, route in bf16): M <= 8 streams; the TMA tiles
-# need every row stride a multiple of 16 bytes (K % 16, N % 16) and 16-byte
-# aligned pointers; other shapes take the mma.sync tiles
+# (M, K, N, byte offset of x, route in bf16): M <= 8 streams (any shape;
+# x at any offset, N off the 8-byte loads); the TMA tiles need every row
+# stride a multiple of 16 bytes (K % 16, N % 16) and 16-byte aligned
+# pointers; other shapes take the mma.sync tiles
 INT4_CASES = ((1, 32, 24, 0, "gemv"), (5, 64, 130, 0, "gemv"),
               (9, 3420, 200, 0, "mma"), (128, 96, 4100, 0, "mma"),
               (5, 2048, 300, 0, "gemv"), (77, 256, 130, 0, "mma"),
               (9, 2048, 256, 0, "tma"), (63, 2112, 256, 0, "tma"),
               (64, 11008, 2048, 0, "tma"), (65, 2048, 11008, 0, "tma"),
               (127, 2112, 4100, 0, "mma"), (129, 2048, 130, 0, "mma"),
-              (65, 2048, 256, 16 * 3, "tma"), (65, 2048, 256, 8, "mma"))
+              (65, 2048, 256, 16 * 3, "tma"), (65, 2048, 256, 8, "mma"),
+              (2, 64, 24, 0, "gemv"), (3, 2048, 130, 8, "gemv"),
+              (4, 96, 4100, 16 * 3, "gemv"), (6, 3420, 130, 4, "gemv"),
+              (7, 2048, 24, 0, "gemv"), (8, 11008, 2048, 8, "gemv"))
+# the rows of the streaming route's timings: decode at B = 1, 2, 4, 8
+DECODE_ROWS = (1, 2, 4, 8)
 
 
 def phase_int4_matmul(sm, quant, i4):
@@ -1047,14 +1057,14 @@ def phase_int4_matmul(sm, quant, i4):
         packed, scale = weight(n, k)
         w_deq = (quant.unpack_int4(packed).float() * scale).t() \
             .to(torch.bfloat16).contiguous()                     # [n, k]
-        for m in (1, PREFILL_ROWS):
+        for m in DECODE_ROWS + (PREFILL_ROWS,):
             x = torch.randn(m, k, device="cuda", generator=gen)
             err, segs = _both_dtypes(
                 sm, f"int4_matmul {name} M={m} K={k} N={n}",
                 lambda xd: i4.int4_matmul(xd, packed, scale),
                 lambda xf: i4.int4_matmul_reference(xf, packed, scale), x,
                 repeat=True, routes=(i4.int4_matmul.routes,
-                                     "gemv" if m == 1 else "tma"))
+                                     "gemv" if m <= 8 else "tma"))
             errs.append(err)
             xf = x.float()
             faults = _fault_readings(
@@ -1063,7 +1073,7 @@ def phase_int4_matmul(sm, quant, i4):
                 i4.int4_matmul_reference(xf, packed, scale),
                 _int4_faults(packed, scale), INT4_SEG_BF16)
             xb = x.to(torch.bfloat16)
-            cold = m == 1
+            cold = m <= 8
             wq = _copies(packed.numel(), lambda: (packed.clone(),
                                                   scale.clone())) \
                 if cold else [(packed, scale)]
@@ -1104,14 +1114,18 @@ def _mlp_node(quant, gen, d, i):
 
 
 # (M, D, I, byte offset of x, route in bf16): both products take it (the
-# first needs D % 16 and I % 16, the second I % 8 and (D/2) % 16)
+# tiles: the first needs D % 16 and I % 16, the second I % 8 and
+# (D/2) % 16; streaming: any shape)
 INT4_MLP_CASES = ((1, 64, 256, 0, "gemv"), (5, 256, 768, 0, "gemv"),
                   (16, 128, 128, 0, "tma"), (200, 128, 256, 0, "tma"),
                   (300, 64, 128, 0, "tma"), (8, 48, 128, 0, "gemv"),
                   (9, 2048, 1024, 0, "tma"), (63, 2048, 1024, 0, "tma"),
                   (64, 2048, 1024, 0, "tma"), (65, 2048, 1024, 16 * 3, "tma"),
                   (127, 2048, 1024, 0, "tma"), (129, 2048, 1024, 0, "tma"),
-                  (33, 2112, 1024, 0, "tma"), (33, 40, 128, 0, "mma"))
+                  (33, 2112, 1024, 0, "tma"), (33, 40, 128, 0, "mma"),
+                  (2, 2048, 1024, 8, "gemv"), (3, 64, 130, 0, "gemv"),
+                  (4, 256, 768, 16 * 3, "gemv"), (6, 48, 24, 4, "gemv"),
+                  (7, 2112, 1024, 0, "gemv"), (8, 2048, 1024, 4, "gemv"))
 
 
 def phase_int4_mlp(sm, quant, i4mlp):
@@ -1137,13 +1151,13 @@ def phase_int4_mlp(sm, quant, i4mlp):
     lib_w.append((torch.cat([lo, hi], -1).float() * node["down_s"]).t()
                  .to(torch.bfloat16).contiguous())               # [D, I]
     node_bytes = sum(t.numel() * t.element_size() for t in node.values())
-    for m in (1, PREFILL_ROWS):
+    for m in DECODE_ROWS + (PREFILL_ROWS,):
         x = torch.randn(m, d, device="cuda", generator=gen)
         err, segs = _both_dtypes(
             sm, f"int4_mlp D={d} I={i} M={m}",
             lambda xd: i4mlp.int4_mlp(xd, node),
             lambda xf: i4mlp.int4_mlp_reference(xf, node), x, repeat=True,
-            routes=(i4mlp.int4_mlp.routes, "gemv" if m == 1 else "tma"))
+            routes=(i4mlp.int4_mlp.routes, "gemv" if m <= 8 else "tma"))
         errs.append(err)
         xf = x.float()
         faults = _fault_readings(
@@ -1154,7 +1168,7 @@ def phase_int4_mlp(sm, quant, i4mlp):
             _int4_faults(node["down_pk"], node["down_s"], out_pack=True),
             INT4_SEG_BF16)
         xb = x.to(torch.bfloat16)
-        cold = m == 1
+        cold = m <= 8
         nodes = _copies(node_bytes, lambda: ({k: v.clone() for k, v in
                                               node.items()},)) \
             if cold else [(node,)]
@@ -2451,30 +2465,32 @@ def phase_serving_3b(sm, fo1, upn, fa, msda, gen, serving, OD_template):
 
 
 def phase_int4_graph(sm, quant, i4, i4mlp):
-    """The int4 kernels' streaming route at M = 8 (a B = 8 decode step's
+    """The int4 kernels' streaming route at M = 1, 2, 4, 8 (decode steps'
     rows) on the 3B trunk's shapes, captured in a CUDA graph and replayed:
-    bit-equal to an eager call on the same inputs, held against the plain
-    version at the bf16 bounds, routes asserted."""
+    bit-equal to an eager call on the same inputs, one launch a product
+    (two a fused MLP), held against the plain version at the bf16 bounds,
+    routes asserted."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     calls = {}
-    for name, k, n in TRUNK_LINEARS:
-        x = torch.randn(SERVE_BATCH, k, device="cuda",
+    for m in DECODE_ROWS:
+        for name, k, n in TRUNK_LINEARS:
+            x = torch.randn(m, k, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            packed, scale = quant.quantize_weight_int4(
+                torch.randn(n, k, device="cuda", generator=gen) * 0.02)
+            calls[f"int4_matmul {name} K={k} N={n} M={m}"] = (
+                i4.int4_matmul, 1, functools.partial(i4.int4_matmul, x,
+                                                     packed, scale),
+                functools.partial(i4.int4_matmul_reference, x.float(),
+                                  packed, scale))
+        x = torch.randn(m, 2048, device="cuda",
                         generator=gen).to(torch.bfloat16)
-        packed, scale = quant.quantize_weight_int4(
-            torch.randn(n, k, device="cuda", generator=gen) * 0.02)
-        calls[f"int4_matmul {name} K={k} N={n}"] = (
-            i4.int4_matmul, functools.partial(i4.int4_matmul, x, packed,
-                                              scale),
-            functools.partial(i4.int4_matmul_reference, x.float(), packed,
-                              scale))
-    x = torch.randn(SERVE_BATCH, 2048, device="cuda",
-                    generator=gen).to(torch.bfloat16)
-    node = _mlp_node(quant, gen, 2048, 11008)
-    calls["int4_mlp D=2048 I=11008"] = (
-        i4mlp.int4_mlp, functools.partial(i4mlp.int4_mlp, x, node),
-        functools.partial(i4mlp.int4_mlp_reference, x.float(), node))
+        node = _mlp_node(quant, gen, 2048, 11008)
+        calls[f"int4_mlp D=2048 I=11008 M={m}"] = (
+            i4mlp.int4_mlp, 2, functools.partial(i4mlp.int4_mlp, x, node),
+            functools.partial(i4mlp.int4_mlp_reference, x.float(), node))
     out = {"int4_matmul": True, "int4_mlp": True}
-    for what, (fn, call, plain) in calls.items():
+    for what, (fn, products, call, plain) in calls.items():
         eager = call()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -2492,18 +2508,52 @@ def phase_int4_graph(sm, quant, i4, i4mlp):
         torch.cuda.synchronize()
         same = torch.equal(got, eager)
         out[fn.__name__] &= same
-        sm.check(same and set(captured) == {"gemv"},
-                 f"{what} M={SERVE_BATCH} bf16 replayed from a CUDA graph: "
-                 f"bit-equal to eager {same}, captured routes {captured}")
+        sm.check(same and captured == {"gemv": products},
+                 f"{what} bf16 replayed from a CUDA graph: bit-equal to "
+                 f"eager {same}, captured routes {captured}")
         ref = plain()
-        _rel_check(sm, f"{what} M={SERVE_BATCH} bf16 from the graph vs its "
-                   f"plain version:", got, ref, BF16_TOL)
+        _rel_check(sm, f"{what} bf16 from the graph vs its plain version:",
+                   got, ref, BF16_TOL)
         seg = _seg_rel(got, ref)
-        sm.check(seg <= INT4_SEG_BF16, f"{what} M={SERVE_BATCH} bf16 from "
-                 f"the graph: worst row segment relative L2 {seg:.3e} "
-                 f"(bound {INT4_SEG_BF16:g})")
+        sm.check(seg <= INT4_SEG_BF16, f"{what} bf16 from the graph: worst "
+                 f"row segment relative L2 {seg:.3e} (bound "
+                 f"{INT4_SEG_BF16:g})")
         del graph
+    out["kernels_per_call"] = _kernels_per_call(sm, calls)
     return out
+
+
+def _kernels_per_call(sm, calls):
+    """Device kernels of one eager call of each M = 8 product, from
+    torch.profiler's CUDA activity: one a streaming int4_matmul, two a
+    fused MLP (gate and up with the SwiGLU, then down). None where the
+    profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for what, (_, products, call, _) in calls.items():
+        if not what.endswith(f"M={SERVE_BATCH}"):
+            continue
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memcpy" not in e.name.lower()
+                 and "memset" not in e.name.lower()]
+        counts[what] = len(names) if names else None
+        if names:
+            sm.check(len(names) == products and all(
+                "skinny_kernel" in n for n in names),
+                f"{what}: {len(names)} device kernel(s) a call, "
+                f"{sorted(set(n.split('(')[0][-40:] for n in names))} "
+                f"(want {products} streaming launch(es))")
+        else:
+            sm.log(f"{what}: the profiler recorded no device activity; "
+                   f"kernels a call not measured")
+    return counts
 
 
 def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
@@ -2513,7 +2563,8 @@ def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
     streaming from the decode graph), graph decode equal to eager decode
     at B = 1 and 8; the batch's launches (zeroed just before it, read just
     after) are the trunk's int4 modules once per forward; the decode ms a
-    step at B = 8, eager and graph."""
+    step at B = 1 and 8, eager and graph, and the first request's 32-token
+    decode stage from its kept graph."""
     from vlm_fo1_tpu_torch.models.llm import Int4MLP
     from vlm_fo1_tpu_torch.nn import QLinear4
 
@@ -2526,13 +2577,16 @@ def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
         quant.quantize_model(model, mode)
         per_forward = sum(isinstance(m, kind) for m in model.text.modules())
         batch = [_messages(700 + i, OD_template) for i in range(SERVE_BATCH)]
-        eager, graph = {}, {}
+        eager, graph, stage = {}, {}, {}
         for graphs, res in ((False, eager), (True, graph)):
             model.cuda_graphs = graphs
             res[1] = [model.generate(batch[0], max_new_tokens=SERVE_NEW)]
             res[SERVE_BATCH] = model.generate_batch(
                 batch, max_new_tokens=SERVE_NEW)   # graphs: captures
         model.cuda_graphs = True
+        # the first request's 32-token decode stage from its kept graph
+        model.generate(batch[0], max_new_tokens=SERVE_NEW,
+                       stage_ms=stage)
         for b in (1, SERVE_BATCH):
             _results_equal(sm, f"3B {mode} B={b}", graph[b], eager[b])
         preps = [model.prepare(m) for m in batch]
@@ -2550,16 +2604,19 @@ def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
                   if fn.routes[r] != routes0[r]}
         launches[fn.__name__] = n
         step = {}
-        for graphs in (False, True):
-            step["graph" if graphs else "eager"] = _decode_step_ms(
-                model, gen, SERVE_BATCH, graphs, reps=3 if graphs else 1)[0]
+        for b in (1, SERVE_BATCH):
+            for graphs in (False, True):
+                step[f"B={b} {'graph' if graphs else 'eager'}"] = \
+                    _decode_step_ms(model, gen, b, graphs,
+                                    reps=3 if graphs else 1)[0]
         runs[mode] = {"batch_ms": ms, "num_steps": res[0].num_steps,
                       "launches": n, "forwards": forwards,
                       "launches_per_forward": n / forwards, "routes": routes,
                       "graph_equals_eager": {
                           f"B={b}": _same_results(graph[b], eager[b])
                           for b in (1, SERVE_BATCH)},
-                      "decode_ms_per_step_B8": step}
+                      "decode_ms_per_step": step,
+                      "decode_stage_ms_32_tokens_B1": stage["decode"]}
         sm.check(n == per_forward * forwards and routes.get("tma", 0) > 0
                  and routes.get("gemv", 0) > 0 and "mma" not in routes
                  and _same_results(res, graph[SERVE_BATCH])
@@ -2568,9 +2625,13 @@ def phase_quant_serving(sm, FO1Model, FO1Config, FallbackTokenizer,
                  f"ms ({res[0].num_steps} steps), {fn.__name__} launches {n}"
                  f" == {per_forward} a forward x {forwards} forwards on the "
                  f"device (graph replays counted), routes {routes}; the "
-                 f"same results as the batch before; decode a step at "
-                 f"B={SERVE_BATCH}: eager {step['eager']:.3f} ms, graph "
-                 f"{step['graph']:.3f} ms")
+                 f"same results as the batch before; decode a step (C = "
+                 f"{DECODE_C}): B=1 eager {step['B=1 eager']:.3f} ms, graph "
+                 f"{step['B=1 graph']:.3f} ms, B={SERVE_BATCH} eager "
+                 f"{step[f'B={SERVE_BATCH} eager']:.3f} ms, graph "
+                 f"{step[f'B={SERVE_BATCH} graph']:.3f} ms; the first "
+                 f"request's {SERVE_NEW}-token decode stage from its graph "
+                 f"{stage['decode']:.1f} ms")
         del model
         torch.cuda.empty_cache()
     return runs, launches
@@ -3511,8 +3572,11 @@ def main():
         "shapes": i4_times,
         "launches_per_request": quant_runs["int4"][1],
         "launches_serving_path": qlaunches["int4_matmul"],
-        "graph_m8_bit_equal": i4_graph["int4_matmul"],
-        "serving_b8": qserve["int4"],
+        "graph_bit_equal_m1_to_8": i4_graph["int4_matmul"],
+        "kernels_per_call": i4_graph["kernels_per_call"],
+        "stream_plans": {"/".join(map(str, k[0])): v
+                         for k, v in i4._PLANS.items()},
+        "serving": qserve["int4"],
     }, {
         "name": "int4_mlp", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/int4_mlp.cu",
@@ -3523,8 +3587,8 @@ def main():
         "shapes": mlp_times,
         "launches_per_request": quant_runs["int4-mlp"][1],
         "launches_serving_path": qlaunches["int4_mlp"],
-        "graph_m8_bit_equal": i4_graph["int4_mlp"],
-        "serving_b8": qserve["int4-mlp"],
+        "graph_bit_equal_m1_to_8": i4_graph["int4_mlp"],
+        "serving": qserve["int4-mlp"],
         "launches_sp_prefill": sp_prefill["int4-mlp"]["sp_nccl_world1"][
             "int4_mlp_launches"],
         "sp_prefill_ms": {k: sp_prefill["int4-mlp"][k]["ms"]

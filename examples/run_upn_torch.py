@@ -36,6 +36,9 @@ TINY_UPN = UPNConfig(d_model=32, n_heads=4, n_points=2, num_encoder_layers=2,
 def add_upn_args(ap):
     ap.add_argument("--upn-ckpt", "--ckpt", dest="upn_ckpt", default=None,
                     help="reference UPN .pth checkpoint")
+    ap.add_argument("--trust-checkpoint", action="store_true",
+                    help="unpickle any object the checkpoint holds (runs "
+                         "code from the file; only for a trusted source)")
     ap.add_argument("--random-init", choices=["tiny", "3b"], default=None,
                     help="seeded random weights instead of a checkpoint")
     ap.add_argument("--device", default="cuda",
@@ -54,7 +57,8 @@ def load_image(path):
 
 def build_upn(args) -> UPNWrapper:
     if args.upn_ckpt:
-        return UPNWrapper(args.upn_ckpt, device=args.device)
+        return UPNWrapper(args.upn_ckpt, device=args.device,
+                          trusted=args.trust_checkpoint)
     if args.random_init == "tiny":
         return UPNWrapper.random_init(TINY_UPN, TINY_SWIN, seed=0,
                                       device=args.device)

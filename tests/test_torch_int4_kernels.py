@@ -11,7 +11,14 @@ bf16) on the CPU, inputs from numpy seeds:
 
 - the magic-number nibble decode of the tiled kernels, written in torch
   on integer bit patterns as the CUDA code runs it, vs `unpack_int4_halves`
-  and JAX `quant.unpack_int4` for all 256 byte values, exactly;
+  and JAX `quant.unpack_int4` for all 256 byte values, exactly, and the
+  streaming route's variant (two rows' bytes gathered into one word, the
+  XOR folded into the mask) for all 65,536 pairs of bytes;
+- the streaming route's split planner (`cluster_plan`) on the 3B trunk's
+  packed weights and on chip_smoke.py's streaming cases, at 132 and 114
+  SMs, with its default capacity model and the clusters an H100 holds:
+  every packed row in exactly one slice, at most 8 slices (a portable
+  cluster), and a grid that fills the SMs;
 - the plain versions of the unpack microbenchmark's strategies vs
   `tools/xp_int4_unpack.py`'s `unpack_divide` / `unpack_shift` /
   `unpack_float` (imported by path), exactly.
@@ -30,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _at_offset, _seg_rel
+from chip_smoke import INT4_CASES, INT4_MLP_CASES, _at_offset, _seg_rel
 from torch_parity import one_torch_thread  # noqa: F401
 from vlm_fo1_tpu import nn as jnn
 from vlm_fo1_tpu.ops.int4_matmul import int4_matmul as jax_int4_matmul
@@ -41,7 +48,14 @@ from vlm_fo1_tpu.ops.int4_mlp import (
 from vlm_fo1_tpu import quant as jquant
 from vlm_fo1_tpu.quant import _quantize_weight_int4, quantize_mlp_int4
 from vlm_fo1_tpu_torch.ops import int4_unpack
-from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul, unpack_int4_halves
+from vlm_fo1_tpu_torch.ops.int4_matmul import (
+    STREAM_COLS,
+    STREAM_MAX_SPLIT,
+    STREAM_STEP,
+    cluster_plan,
+    int4_matmul,
+    unpack_int4_halves,
+)
 from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp
 
 F32_TOL = 2e-5
@@ -137,6 +151,71 @@ def test_magic_decode_matches_unpack_for_all_bytes():
     np.testing.assert_array_equal(
         torch.cat([lo[None], hi[None]]).float().numpy(),
         want.astype(np.float32))
+
+
+def test_streaming_decode_matches_unpack_for_all_byte_pairs():
+    """The streaming kernel's decode, on bit patterns as the CUDA code runs
+    it: `__byte_perm` puts byte c of two rows' words at bytes 0 and 2 of
+    one word (bytes 1 and 3 keep whatever they held), `(t & 0x000F000F) ^
+    0x43084308` (the high nibbles: t >> 4 first) forms 0x4300 | (n ^ 8) in
+    both halves, and x * 1 - 136 in bf16 leaves the signed nibbles of the
+    two rows, for every pair of byte values."""
+    a, b = torch.meshgrid(torch.arange(256), torch.arange(256),
+                          indexing="ij")
+    word = a | (0x5A << 8) | (b << 16) | (0xC3 << 24)   # bytes 1, 3: noise
+    mask, magic = 0x000F000F, 0x43084308
+
+    def bf16x2(v):
+        halves = torch.stack([v & 0xFFFF, v >> 16], -1)
+        return (halves.to(torch.int16).view(torch.bfloat16).float() * 1.0
+                - 136.0).to(torch.bfloat16)
+
+    lo, hi = bf16x2((word & mask) ^ magic), bf16x2(((word >> 4) & mask)
+                                                   ^ magic)
+    bytes_ = torch.stack([a, b], -1).to(torch.uint8).view(torch.int8)
+    want_lo, want_hi = unpack_int4_halves(bytes_)
+    assert torch.equal(lo.float(), want_lo.float())
+    assert torch.equal(hi.float(), want_hi.float())
+
+
+# (packed rows, packed columns) of the streaming route's products: the 3B
+# trunk's int4 linears (CK [K/2, N]: q/o, k/v, gate/up, down), the fused
+# MLP's down (OUT [I, D/2]), and every streaming case of chip_smoke.py
+PLAN_SHAPES = sorted(
+    {(1024, 2048), (1024, 256), (1024, 11008), (5504, 2048), (11008, 1024)}
+    | {(k // 2, n) for m, k, n, _, _ in INT4_CASES if m <= 8}
+    | {shape for m, d, i, _, _ in INT4_MLP_CASES if m <= 8
+       for shape in ((d // 2, i), (i, d // 2))})
+
+
+# clusters of 1..8 blocks of the streaming kernel an H100 SXM holds at once
+# (cudaOccupancyMaxActiveClusters on the card, 132 SMs); the planner's
+# default model is two blocks an SM
+H100_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
+
+
+@pytest.mark.parametrize("capacity", ["two_a_sm", "h100_clusters"])
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("rows,cols", PLAN_SHAPES)
+def test_cluster_plan_covers_rows_once_and_fills_sms(rows, cols, sms,
+                                                     capacity):
+    def held(splits, rows_per):
+        return H100_CLUSTERS[splits - 1] * sms // 132
+
+    splits, rows_per = cluster_plan(
+        rows, cols, sms, held if capacity == "h100_clusters" else None)
+    assert 1 <= splits <= STREAM_MAX_SPLIT
+    assert rows_per > 0 and rows_per % STREAM_STEP == 0
+    slices = [range(s * rows_per, min(rows, (s + 1) * rows_per))
+              for s in range(splits)]
+    assert all(len(sl) > 0 for sl in slices)
+    assert [r for sl in slices for r in sl] == list(range(rows))
+    # the grid fills the SMs, or no cluster of at most 8 could shorten its
+    # longest slice
+    steps = -(-rows // STREAM_STEP)
+    blocks = splits * -(-cols // STREAM_COLS)
+    assert blocks >= sms or rows_per // STREAM_STEP == -(-steps // min(
+        STREAM_MAX_SPLIT, steps))
 
 
 def _tpu_unpack_file():
@@ -238,12 +317,15 @@ def test_int4_mlp_kernel_matches_plain_on_card(m, d, i, monkeypatch):
 
 # (M, K, N, byte offset of x, route of a bf16 call): tile edges of the TMA
 # tiles (M around 64 and 128, K/2 off the 64-row tile, K = 11008, N = 256
-# and 11008) and the shapes that keep the mma.sync tiles
+# and 11008), the shapes that keep the mma.sync tiles, and the streaming
+# route (one launch a call) at odd M, N and x offsets
 INT4_EDGE_CASES = [(9, 2048, 256, 0, "tma"), (63, 2112, 256, 0, "tma"),
                    (64, 11008, 2048, 0, "tma"), (65, 2048, 11008, 0, "tma"),
                    (127, 2112, 4100, 0, "mma"), (129, 2048, 130, 0, "mma"),
                    (1771, 2048, 256, 0, "tma"), (65, 2048, 256, 48, "tma"),
-                   (65, 2048, 256, 8, "mma")]
+                   (65, 2048, 256, 8, "mma"), (2, 2048, 256, 8, "gemv"),
+                   (4, 11008, 2048, 48, "gemv"), (7, 3420, 130, 4, "gemv"),
+                   (8, 2048, 11008, 0, "gemv")]
 
 
 @pytest.mark.cuda
@@ -268,7 +350,8 @@ def test_int4_matmul_tile_edges_on_card(m, k, n, offset, route, monkeypatch):
 # (M, D, I, byte offset of x, route of both products in bf16)
 INT4_MLP_EDGE_CASES = [(9, 2048, 1024, 0, "tma"), (63, 2048, 1024, 0, "tma"),
                        (64, 2048, 1024, 0, "tma"), (127, 2112, 1024, 0, "tma"),
-                       (129, 2048, 1024, 48, "tma"), (33, 40, 128, 0, "mma")]
+                       (129, 2048, 1024, 48, "tma"), (33, 40, 128, 0, "mma"),
+                       (2, 2048, 1024, 8, "gemv"), (7, 64, 130, 0, "gemv")]
 
 
 @pytest.mark.cuda

@@ -15,6 +15,11 @@ the 8 virtual CPU devices of tests/conftest.py:
   divide by the model axis, replicated where they do not;
 - a TP-sharded trunk forward on a (2, 2) mesh against the JAX sharded
   forward (2e-4);
+- the trunk in w8a8 TP-sharded over (1, 4) and (2, 2) (row-parallel w8a8
+  shards) against the dense w8a8 trunk and the JAX sharded w8a8 forward
+  (1e-5), with the same greedy tokens, and one row-parallel w8a8 product
+  with outlier columns on every rank and tied column absmax against the
+  dense product and the JAX w8a8 linear;
 - the DP x TP loss and every gradient against JAX `value_and_grad` of
   `multimodal_lm_loss` (what JAX `make_train_step` takes) on a batch whose
   rows hold unequal numbers of labels;
@@ -40,6 +45,8 @@ from torch_parity import (  # noqa: F401
     port_config,
     to_numpy,
 )
+from vlm_fo1_tpu import nn as jnn
+from vlm_fo1_tpu import quant as jquant
 from vlm_fo1_tpu.config import FO1Config
 from vlm_fo1_tpu.models import llm as jllm
 from vlm_fo1_tpu.parallel.ring_attention import ring_attention as jax_ring
@@ -53,7 +60,6 @@ from vlm_fo1_tpu.runtime.generate import (
     prefill_sequence_parallel as jax_sp_prefill,
 )
 from vlm_fo1_tpu.training.train_step import multimodal_lm_loss as jax_loss
-from vlm_fo1_tpu_torch import nn as tnn
 from vlm_fo1_tpu_torch import quant
 from vlm_fo1_tpu_torch.convert import state_dict_from_jax_params
 from vlm_fo1_tpu_torch.models.fo1 import FO1Model
@@ -61,11 +67,11 @@ from vlm_fo1_tpu_torch.parallel import initialize_distributed
 from vlm_fo1_tpu_torch.parallel.multihost import create_hybrid_mesh
 from vlm_fo1_tpu_torch.parallel.ring_attention import LocalRing
 from vlm_fo1_tpu_torch.parallel.sharding import (
-    _shard_linear,
     param_specs,
     shard_leaf,
 )
 from vlm_fo1_tpu_torch.runtime.generate import prefill_sequence_parallel
+from torch_parallel_worker import W8A8_MESHES, greedy_logits
 
 JCFG = FO1Config.tiny()
 CFG = port_config(JCFG)
@@ -168,7 +174,12 @@ def _tp_inputs(rng):
         _tp_ref, ids, pos)
 
 
-def _tp_ref(ids, pos, jtext):
+def _tp_ref(ids, pos, jtext, w8a8=False):
+    """The JAX trunk's logits over ids, its parameters sharded over a (2, 2)
+    mesh (int8 weights with the w8a8 marker when `w8a8`)."""
+    if w8a8:   # on a copy of the tree: the quantizer edits it in place
+        jtext = jquant.quantize_params_w8a8(
+            jax.tree.map(lambda a: a, {"text": jtext}))["text"]
     b, s = ids.shape
     embeds = jllm.embed_tokens(jtext, jnp.asarray(ids))
     cos, sin = jllm.mrope_cos_sin(jnp.asarray(pos), JCFG.text)
@@ -184,6 +195,26 @@ def _tp_ref(ids, pos, jtext):
     sharded = shard_params({"text": jtext}, mesh)["text"]
     with mesh:
         return np.asarray(jax.jit(fwd)(sharded))
+
+
+def _w8a8_product_inputs(rng):
+    """x [2, 5, 256] with 20 outlier columns spread over the 4 ranks'
+    slices and 30 more columns whose absmax ties at the top-k cut
+    (k = 32); w_q [48, 256] int8, scale [48]."""
+    x = rng.standard_normal((2, 5, 256)).astype(np.float32) * 0.5
+    cols = rng.permutation(256)
+    x[1, 2, cols[:20]] = 40.0 * rng.choice([-1.0, 1.0], 20)
+    x[0, 3, cols[20:50]] = 5.0
+    w_q = rng.integers(-127, 128, (48, 256)).astype(np.int8)
+    scale = (rng.random(48).astype(np.float32) + 0.5) * 1e-2
+    return {"x": _t(x), "w_q": torch.from_numpy(w_q), "scale": _t(scale)}
+
+
+def _w8a8_product_ref(case):
+    q = {"w_q": jnp.asarray(case["w_q"].numpy().T),
+         "scale": jnp.asarray(case["scale"].numpy())}
+    return np.asarray(jnn.linear(jquant.mark_w8a8(q),
+                                 jnp.asarray(case["x"].numpy())))
 
 
 def _train_inputs(rng):
@@ -278,6 +309,7 @@ def run(tmp_path_factory):
     inputs["sp"], ref_fns["sp"] = _sp_inputs(
         rng, sd["text.embed_tokens.weight"])
     inputs["tp"], ref_fns["tp"] = _tp_inputs(rng)
+    inputs["w8a8_product"] = _w8a8_product_inputs(rng)
     inputs["train"], ref_fns["train"] = _train_inputs(rng)
     path = tmp_path_factory.mktemp("parallel")
     torch.save(inputs, path / "inputs.pt")
@@ -287,6 +319,8 @@ def run(tmp_path_factory):
         refs = {"ring": ref_fns["ring"](),
                 "sp": ref_fns["sp"](jparams["text"]),
                 "tp": ref_fns["tp"](jparams["text"]),
+                "tp_w8a8": ref_fns["tp"](jparams["text"], w8a8=True),
+                "w8a8_product": _w8a8_product_ref(inputs["w8a8_product"]),
                 "train": ref_fns["train"](jparams)}
     finally:
         outs = _join(procs, path)
@@ -425,11 +459,44 @@ def test_int8_leaves_follow_the_jax_rules(run):
                if n.startswith("text.layers."))
 
 
-def test_w8a8_row_parallel_shard_is_refused(run):
-    lin = tnn.QLinear8(torch.zeros(4, 4, dtype=torch.int8), torch.ones(4))
-    quant.mark_w8a8(lin)
-    with pytest.raises(ValueError, match="w8a8"):
-        _shard_linear(lin, "row", None, 0, 2)
+@pytest.fixture(scope="module")
+def dense_w8a8(run):
+    """The unsharded tiny trunk in w8a8: (prompt logits, greedy tokens)."""
+    model = FO1Model(CFG, device="cpu")
+    model.load_state_dict(run["inputs"]["state_dict"])
+    quant.quantize_model(model, "w8a8")
+    return greedy_logits(model.text, CFG, run["inputs"]["tp"]["ids"])
+
+
+@pytest.mark.parametrize("shape", W8A8_MESHES, ids=str)
+def test_w8a8_row_parallel_shard_matches_dense_and_jax(run, dense_w8a8,
+                                                       shape):
+    """Every rank's prompt logits within 1e-5 of the dense w8a8 trunk and
+    of the JAX w8a8 forward sharded over (2, 2); the same greedy tokens as
+    the dense trunk."""
+    want, want_tokens = dense_w8a8
+    for r, out in enumerate(run["outs"]):
+        logits, tokens = out[f"tp_w8a8/{shape}"]
+        np.testing.assert_allclose(logits.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        np.testing.assert_allclose(logits.numpy(), run["refs"]["tp_w8a8"],
+                                   rtol=1e-5, atol=1e-5, err_msg=f"rank {r}")
+        assert torch.equal(tokens, want_tokens), (r, tokens, want_tokens)
+
+
+def test_w8a8_row_parallel_product_matches_dense_and_jax(run):
+    """One row-parallel w8a8 product over 4 ranks: outlier columns in
+    every rank's slice and an absmax tie across the top-k cut pick the
+    dense outliers (lower index first), and the result equals the dense
+    product and the JAX w8a8 linear to 1e-5 (the f32 outlier products
+    are summed over the ranks in another order)."""
+    want = run["refs"]["w8a8_product"]
+    for r, out in enumerate(run["outs"]):
+        got, dense = out["w8a8_product"]
+        np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {r}")
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"rank {r}")
 
 
 def test_tp_forward_matches_jax_on_a_2x2_mesh(run):

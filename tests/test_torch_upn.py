@@ -10,7 +10,9 @@ encoder-output bias is set so that this tied score is the highest of all:
 the top-k then lies wholly inside the tie group and its indices depend only
 on the tie rule (lax.top_k takes the lower index first)."""
 
+import argparse
 import dataclasses
+import pickle
 from unittest import mock
 
 import jax
@@ -225,6 +227,57 @@ def test_pth_round_trip_both_ways(tmp_path):
         np.testing.assert_array_equal(g, w)
     tw = UPNWrapper(str(path), cfg=CFG, swin_cfg=SWIN, dtype=torch.float32,
                     device="cpu")
+    for k, v in tw.model.state_dict().items():
+        torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
+
+
+class OptimizerState:
+    """An object a training script might pickle beside the weights."""
+
+    def __init__(self, step):
+        self.step = step
+
+
+def _pth_with(tmp_path, seed, **extra):
+    """A reference-style .pth of seeded JAX parameters with `extra`
+    entries beside `model`; (path, JAX params, port state dict)."""
+    params = to_numpy(init_upn_params(jax.random.PRNGKey(seed), J_UPN,
+                                      J_SWIN))
+    sd = upn_state_dict_from_jax_params(params, CFG, SWIN)
+    path = tmp_path / "upn.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in sd.items()},
+                **extra}, str(path))
+    return path, params, sd
+
+
+def test_pth_with_training_args_loads_in_both(tmp_path):
+    """The file DETR-family training scripts save (`model`, an
+    argparse.Namespace under `args`, an `epoch`) loads in the JAX package
+    and in the port to the same parameters, without trusted=True."""
+    path, params, sd = _pth_with(
+        tmp_path, 9, args=argparse.Namespace(lr=1e-4, backbone="swin_L",
+                                             lr_drop_list=[33, 45]),
+        epoch=12)
+    jw = JaxUPNWrapper(str(path), cfg=J_UPN, swin_cfg=J_SWIN,
+                       dtype=jnp.float32)
+    for g, w in zip(jax.tree.leaves(to_numpy(jw.params)),
+                    jax.tree.leaves(params)):
+        np.testing.assert_array_equal(g, w)
+    tw = UPNWrapper(str(path), cfg=CFG, swin_cfg=SWIN, dtype=torch.float32,
+                    device="cpu")
+    for k, v in tw.model.state_dict().items():
+        torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
+
+
+def test_pth_with_other_objects_needs_trust(tmp_path):
+    """Any other pickled object raises an UnpicklingError that names it,
+    unless the caller passes trusted=True (then it loads as in JAX)."""
+    path, _, sd = _pth_with(tmp_path, 10, optimizer=OptimizerState(3))
+    with pytest.raises(pickle.UnpicklingError, match="OptimizerState"):
+        UPNWrapper(str(path), cfg=CFG, swin_cfg=SWIN, dtype=torch.float32,
+                   device="cpu")
+    tw = UPNWrapper(str(path), cfg=CFG, swin_cfg=SWIN, dtype=torch.float32,
+                    device="cpu", trusted=True)
     for k, v in tw.model.state_dict().items():
         torch.testing.assert_close(v, sd[k], rtol=0, atol=0)
 

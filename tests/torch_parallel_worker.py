@@ -65,6 +65,63 @@ def _tp_forward(inp, cfg, mesh, out):
     out["tp/heads"] = (text.layers[0].self_attn.nh, text.kv_heads)
 
 
+W8A8_MESHES = ((1, 4), (2, 2))
+W8A8_NEW = 4     # greedy tokens after the prompt
+
+
+def greedy_logits(text, cfg, ids, new=W8A8_NEW):
+    """The trunk's causal forward over ids [B, S] (every call multi-token,
+    so w8a8 linears quantize their activations), then `new` greedy tokens,
+    each from a full forward over the grown sequence: (the prompt's logits
+    [B, S, V], the new tokens [B, new])."""
+    from vlm_fo1_tpu_torch.models.llm import causal_attention, mrope_cos_sin
+
+    first, toks = None, []
+    with torch.no_grad():
+        for _ in range(new + 1):
+            b, s = ids.shape
+            pos = torch.arange(s).expand(3, b, s)
+            cos, sin = mrope_cos_sin(pos, cfg.text)
+            logits = text.logits(text(text.embed(ids), cos, sin,
+                                      attention=causal_attention))
+            first = logits if first is None else first
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            toks.append(nxt)
+            ids = torch.cat([ids, nxt], dim=1)
+    return first, torch.cat(toks[:new], dim=1)
+
+
+def _tp_w8a8(inp, cfg, out):
+    """The tiny trunk in w8a8, TP-sharded over each mesh of W8A8_MESHES
+    (row-parallel w8a8 o_proj / down_proj), and one row-parallel w8a8
+    product against the dense one on inputs with planted outlier columns
+    on every rank and tied column absmax."""
+    from vlm_fo1_tpu_torch import nn as tnn
+    from vlm_fo1_tpu_torch.parallel.sharding import (
+        create_mesh,
+        shard_leaf,
+        shard_model,
+        w8a8_row_parallel,
+    )
+    from vlm_fo1_tpu_torch.quant import quantize_model
+
+    for shape in W8A8_MESHES:
+        mesh = create_mesh(*shape)
+        model = _text(inp, cfg)
+        quantize_model(model, "w8a8")
+        shard_model(model.text, mesh)
+        out[f"tp_w8a8/{shape}"] = greedy_logits(model.text, cfg,
+                                                inp["tp"]["ids"])
+    case = inp["w8a8_product"]
+    group = create_mesh(1, dist.get_world_size()).get_group("model")
+    r, m = dist.get_rank(group), dist.get_world_size(group)
+    x = case["x"].chunk(m, dim=-1)[r].contiguous()
+    w_q = shard_leaf(case["w_q"], "row", "w_q", r, m)
+    out["w8a8_product"] = (w8a8_row_parallel(x, w_q, case["scale"], group),
+                           tnn.w8a8_matmul(case["x"], case["w_q"],
+                                           case["scale"]))
+
+
 def _train(inp, cfg, mesh, out):
     from vlm_fo1_tpu_torch.parallel.sharding import (
         data_rows,
@@ -124,6 +181,7 @@ def main(rank, world, address, path):
         _ring(inp, out)
         _sp(inp, cfg, out)
         _tp_forward(inp, cfg, mesh, out)
+        _tp_w8a8(inp, cfg, out)
         _train(inp, cfg, mesh, out)
         _multihost(out)
         out["dryrun"] = run_suite(mesh, "cpu")

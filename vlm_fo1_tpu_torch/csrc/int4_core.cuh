@@ -8,7 +8,24 @@
 //   OUT (output halves)       P [Kc, Nc/2]: P[k, n] = W[k, n] | W[k, n+Nc/2] << 4
 // Nibbles are signed (two's complement, [-8, 7]).
 //
-// Four paths:
+// Five paths:
+//   skinny_kernel (M <= 8, bf16 x; every decode step): the streaming
+//     route, one launch a product. Bound in theory by the packed bytes,
+//     read once. Each warp streams 16-row steps of a 64-column strip with
+//     8-byte register loads that skip L1, groups of steps double-buffered
+//     in registers; the block's x slice sits in shared memory (cp.async);
+//     the nibbles are decoded with the magic-number decode straight into
+//     mma.sync m16n8k16 A fragments (the product transposed, x rows the
+//     n = 8 operand), f32 sums. K is split over the blocks of a
+//     thread-block cluster (at most 8; the wrapper's plan keeps the
+//     clusters within what cudaOccupancyMaxActiveClusters says the card
+//     holds at once); warps are summed in warp order through shared
+//     memory and the cluster's blocks in rank order in rank 0, through
+//     distributed shared memory, so no workspace or second launch is
+//     needed. Measured on the 3B
+//     shapes it runs at a quarter of the byte bound, flat from M = 1 to 8:
+//     the decode, the reduction and the first round trip to memory do not
+//     overlap the stream enough (PERF.md).
 //   tma_kernel   (M > 8, bf16 x, shapes TMA can describe; every 3B shape):
 //     wgmma fed by TMA, the product taken transposed (out^T = W^T x^T) so
 //     that the weights are the A operand in registers. One warp keeps a
@@ -34,19 +51,19 @@
 //     rows: x as f32 (transposed) and the weight bytes sign-extended once
 //     into f32, in shared memory, then 32 FMA rounds from float4 reads.
 //     Bound by the f32 FMA rate.
-//   gemv_kernel  (M <= 8): streams the packed bytes once, 4 bytes per lane
-//     per row (one 32-bit load), 128 packed columns per block; the 8 warps
-//     of a block take interleaved rows and the blocks of one column range
-//     take consecutive row slices (blockIdx.y). Warps are summed through
-//     shared memory and slices through an f32 workspace by finish_kernel,
-//     both in a fixed order, so results repeat bit for bit. Bound by the
-//     bytes of the packed weight.
+//   gemv_kernel  (M <= 8, f32 x): streams the packed bytes once, 4 bytes
+//     per lane per row (one 32-bit load), f32 FMAs, 128 packed columns per
+//     block; the 8 warps of a block take interleaved rows and the blocks
+//     of one column range take consecutive row slices (blockIdx.y). Warps
+//     are summed through shared memory and slices through an f32
+//     workspace by finish_kernel, both in a fixed order.
 // Every path sums in a fixed order, so results repeat bit for bit.
 // Epilogues: SCALE  out = acc * s0[n]
 //            SWIGLU out = silu(acc0 * s0[n]) * (acc1 * s1[n])  (two weights)
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,10 +82,6 @@ constexpr int KT = 32;       // gemm: contraction rows per step
 constexpr int LDS = BM + 4;  // shared row stride (floats), float4 aligned
 constexpr int GCOLS = 128;   // gemv: packed columns per block
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // signed nibbles of byte j (0..3) of a little-endian 32-bit word
 __device__ __forceinline__ float nib_lo(uint32_t w, int j) {
@@ -127,11 +140,11 @@ __device__ __forceinline__ float epilogue(float a0, float a1, const float* s0,
 
 // ---------------------------------------------------------------- gemm
 // x [M, K] (row-major, K = Kc); W packed per MODE; out [M, N] (N = Nc).
-template <typename T, int MODE, int NW, int EPI>
+template <int MODE, int NW, int EPI>
 __global__ void __launch_bounds__(NT)
-gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
+gemm_kernel(const float* __restrict__ x, const int8_t* __restrict__ w0,
             const int8_t* __restrict__ w1, const float* __restrict__ s0,
-            const float* __restrict__ s1, T* __restrict__ out, int M, int K,
+            const float* __restrict__ s1, float* __restrict__ out, int M, int K,
             int N) {
   __shared__ __align__(16) float As[KT][LDS];
   __shared__ __align__(16) float Ws[NW][KT][LDS];
@@ -179,7 +192,7 @@ gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
           k = s * KT + j;
           ok = k < K;
         }
-        As[j][am] = (m < M && ok) ? to_f(x[(size_t)m * K + k]) : 0.f;
+        As[j][am] = (m < M && ok) ? x[(size_t)m * K + k] : 0.f;
       }
     }
     // ---- stage the weight bytes, each nibble sign-extended once
@@ -235,7 +248,7 @@ gemm_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
         n = c < BN / 2 ? p : N / 2 + p;
       }
       const float v = epilogue<EPI>(acc[0][i][j], acc[NW - 1][i][j], s0, s1, n);
-      store(out + (size_t)m * N + n, v);
+      out[(size_t)m * N + n] = v;
     }
   }
 }
@@ -725,9 +738,9 @@ tma_kernel(const __grid_constant__ CUtensorMap xmap_lo,
 // ---------------------------------------------------------------- gemv
 // Partial sums of rows [blockIdx.y * rows_per, ...) of the packed weight into
 // part[((split * NW + w) * M + m) * N + n], f32, unscaled.
-template <typename T, int MODE, int NW, int MT>
+template <int MODE, int NW, int MT>
 __global__ void __launch_bounds__(NT)
-gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
+gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ w0,
             const int8_t* __restrict__ w1, float* __restrict__ part, int M,
             int K, int N, int rows_per, int vec) {
   constexpr int OPT = MODE == CK ? 4 : 8;   // outputs per lane per weight
@@ -767,8 +780,8 @@ gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
       for (int m = 0; m < MT; ++m) {
         if (m >= M) break;
         if (MODE == CK) {
-          const float xl = to_f(x[(size_t)m * K + rr]);
-          const float xh = to_f(x[(size_t)m * K + K / 2 + rr]);
+          const float xl = x[(size_t)m * K + rr];
+          const float xh = x[(size_t)m * K + K / 2 + rr];
 #pragma unroll
           for (int w = 0; w < NW; ++w)
 #pragma unroll
@@ -776,7 +789,7 @@ gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
               acc[w][m][j] = fmaf(xh, nib_hi(word[w][u], j),
                                   fmaf(xl, nib_lo(word[w][u], j), acc[w][m][j]));
         } else {
-          const float xv = to_f(x[(size_t)m * K + rr]);
+          const float xv = x[(size_t)m * K + rr];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             acc[0][m][j] = fmaf(xv, nib_lo(word[0][u], j), acc[0][m][j]);
@@ -814,10 +827,10 @@ gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ w0,
 
 // slices -> result: sum the `splits` partials of each output in order, then
 // the epilogue
-template <typename T, int NW, int EPI>
+template <int NW, int EPI>
 __global__ void __launch_bounds__(NT)
 finish_kernel(const float* __restrict__ part, const float* __restrict__ s0,
-              const float* __restrict__ s1, T* __restrict__ out, int M, int N,
+              const float* __restrict__ s1, float* __restrict__ out, int M, int N,
               int splits) {
   const int idx = blockIdx.x * NT + threadIdx.x;
   if (idx >= M * N) return;
@@ -829,7 +842,349 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ s0,
     for (int s = 0; s < splits; ++s) v += part[(((size_t)s * NW + w) * M + m) * N + n];
     a[w] = v;
   }
-  store(out + idx, epilogue<EPI>(a[0], a[NW - 1], s0, s1, n));
+  out[idx] = epilogue<EPI>(a[0], a[NW - 1], s0, s1, n);
+}
+
+// ------------------------------------------------------ skinny (bf16 x)
+// The streaming route for bf16 x and M <= 8 (see the header), one launch a
+// product. The product is taken transposed, out^T = W^T x^T, on
+// mma.sync.m16n8k16: the decoded weights are the A operand (16 weight
+// columns x 16 contraction slots), the <= 8 rows of x the n = 8 B operand
+// (rows past M read zeros), f32 sums.
+//
+// Grid (S, units), clusters of S blocks along x. A unit is 64 packed
+// columns; block `rank` of its cluster takes packed rows [rank * rows_per,
+// ...) (rows_per a multiple of 16, from the wrapper's plan). Its 8 warps
+// take the 16-row steps of that slice in turn (warp w: steps w, w + 8, ...).
+// In a step, thread (g = lane/4, t = lane%4) loads 8 bytes (its columns
+// 8g .. 8g+7) of packed rows 2t, 2t+1, 2t+8, 2t+9 -- the rows of its A
+// fragments -- straight into registers with 8-byte loads that skip L1; one
+// load instruction of a warp covers four whole 64-byte row segments.
+// Groups of PF steps are double-buffered in registers, so the next group's
+// bytes are in flight while this one is decoded and multiplied. The x
+// slice of the block ([8, 2 rows_per] CK, [8, rows_per] OUT, bf16) is
+// staged once in shared memory (cp.async, issued before the weights), its
+// row stride padded so the B fragment loads of a warp hit 32 banks.
+//
+// Decode: a byte_perm gathers byte c of rows (2t, 2t+1) into one word
+// (bytes 0 and 2); one lop3 each for the low and the high nibbles (plus a
+// shift for the high) forms 0x4300 | (n ^ 8) in both halves, and one bf16x2
+// fma subtracts 136 (the magic decode of decode_magic, the XOR folded in).
+// A row <-> weight column: CK, tile j (0..3): rows g, g+8 -> columns
+// 8g+2j, 8g+2j+1; the low nibbles are k16 block "low half", the high
+// nibbles "high half" of the same packed rows, two products into one tile.
+// OUT: tile j (0..7): rows g, g+8 -> the low and high nibble of packed
+// column 8g+j, i.e. outputs p and N/2 + p; one product.
+//
+// Reduction, all in the launch and in a fixed order: the warps' sums
+// through shared memory in warp order; each block writes its sums into slot
+// `rank` of rank 0's receive buffer (distributed shared memory) and
+// arrives on the cluster barrier; the other ranks are then done, and rank
+// 0 waits, sums the S slots in rank order and applies the epilogue (its
+// threads load their scales at the start, so the end of the launch waits
+// on no global read). No workspace, no counters: a launch replays bit for
+// bit, also from a CUDA graph.
+namespace sk {
+constexpr int WARPS = 8;
+constexpr int NTHREADS = 32 * WARPS;
+constexpr int STEP = 16;       // packed rows a warp takes per step
+constexpr int COLS = 64;       // packed columns a unit (and a warp) covers
+constexpr int MAX_SPLIT = 8;   // blocks of a cluster (portable size)
+constexpr int MROWS = 8;       // x rows of the B operand
+// shared memory budget of one block; a larger x slice takes the tiled route
+constexpr int SMEM_MAX = 160 * 1024;
+
+// outputs of a unit per weight (CK: one per packed column; OUT: two)
+template <int MODE>
+__host__ __device__ constexpr int unit_outs() { return MODE == CK ? COLS : 2 * COLS; }
+
+// x slice row stride in bf16: >= width, and (stride / 2) % 32 == 4 words,
+// so the 32 lanes' B fragment words (row g, word t) fall in 32 banks
+__host__ __device__ inline int x_stride(int width) { return (width + 55) / 64 * 64 + 8; }
+
+// shared memory of a block: the x slice, reused after the stream for the
+// warps' sums [WARPS][MROWS][EW], then the cluster's receive buffer
+// [S][MROWS][EW] (read by rank 0)
+template <int MODE, int NW>
+inline size_t smem_bytes(int rows_per, int S) {
+  const int width = MODE == CK ? 2 * rows_per : rows_per;
+  const size_t xs = (size_t)MROWS * x_stride(width) * 2;
+  const size_t red = (size_t)WARPS * MROWS * NW * unit_outs<MODE>() * 4;
+  const size_t recv = (size_t)S * MROWS * NW * unit_outs<MODE>() * 4;
+  return (xs > red ? xs : red) + recv;
+}
+}  // namespace sk
+
+// 8 bytes at p (VEC: one 8-byte load that skips L1; else byte loads, the
+// columns at or past `left` read 0)
+template <bool VEC>
+__device__ __forceinline__ uint2 sk_load8(const int8_t* __restrict__ p, int left) {
+  if (VEC) {
+    uint2 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(v.x), "=r"(v.y) : "l"(p));
+    return v;
+  }
+  uint32_t u[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j < left) u[j / 4] |= (uint32_t)(uint8_t)__ldg(p + j) << (8 * (j % 4));
+  return make_uint2(u[0], u[1]);
+}
+
+// bytes c of words a and b at bytes 0 and 2 (bytes 1 and 3 are not read)
+__device__ __forceinline__ uint32_t sk_pair(uint2 a, uint2 b, int c) {
+  const uint32_t wa = c < 4 ? a.x : a.y, wb = c < 4 ? b.x : b.y;
+  const uint32_t s = (uint32_t)(c % 4);
+  return __byte_perm(wa, wb, s | (s << 4) | ((4 + s) << 8) | ((4 + s) << 12));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// the two low (hi = false) or high nibbles of a pair word as bf16x2 values
+__device__ __forceinline__ uint32_t sk_decode(uint32_t t, bool hi) {
+  constexpr uint32_t MASK = 0x000F000Fu, MAGIC_X8 = 0x43084308u;
+  constexpr uint32_t ONE = 0x3F803F80u, MINUS136 = 0xC308C308u;
+  const uint32_t v = ((hi ? t >> 4 : t) & MASK) ^ MAGIC_X8;   // 0x4300 | (n ^ 8)
+  return bf16x2_fma(v, ONE, MINUS136);
+}
+
+template <int MODE, int EPI, bool VEC, int PF>
+__global__ void __launch_bounds__(sk::NTHREADS, 2)
+skinny_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w0,
+              const int8_t* __restrict__ w1, const float* __restrict__ s0,
+              const float* __restrict__ s1, __nv_bfloat16* __restrict__ out, int M,
+              int K, int N, int rows_per, int xvec) {
+  using namespace sk;
+  namespace cg = cooperative_groups;
+  constexpr int NW = EPI == SWIGLU ? 2 : 1;
+  constexpr int UO = unit_outs<MODE>();      // outputs a unit, per weight
+  constexpr int EW = NW * UO;                // sums a unit, per x row
+  constexpr int TILES = MODE == CK ? 4 : 8;  // m16 tiles a warp
+  extern __shared__ __align__(16) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x, S = gridDim.x, unit = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int prow = MODE == CK ? K / 2 : K;   // packed rows
+  const int pcol = MODE == CK ? N : N / 2;   // packed columns
+  const int r0 = rank * rows_per;
+  const int nrows = min(prow, r0 + rows_per) - r0;
+  const int nsteps = (nrows + STEP - 1) / STEP;
+  const int width = MODE == CK ? 2 * rows_per : rows_per;
+  const int ldx = x_stride(width);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  const size_t xs_bytes = (size_t)MROWS * ldx * 2;
+  const size_t red_bytes = (size_t)WARPS * MROWS * EW * 4;
+  float* red = reinterpret_cast<float*>(smem);      // reuses the x slice
+  float* recv = reinterpret_cast<float*>(smem + (xs_bytes > red_bytes ? xs_bytes : red_bytes));
+  // this thread's 8 packed columns: the first and how many are inside
+  const int c0 = unit * COLS + 8 * g;
+  const int left = pcol - c0;
+  // the cluster's barrier, phase 1: every block has started before any
+  // writes into rank 0's shared memory (waited for after the stream)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  // rank 0's epilogue scales, loaded now: thread tid finishes the outputs
+  // e = tid % UO of the unit (UO divides the block), column n_e
+  static_assert(NTHREADS % UO == 0, "a thread keeps one output column");
+  const int e_mine = tid % UO;
+  int n_mine;
+  if (MODE == CK) {
+    n_mine = unit * COLS + e_mine;
+  } else {
+    const int p = unit * COLS + (e_mine % COLS);
+    n_mine = p < N / 2 ? (e_mine < COLS ? p : N / 2 + p) : N;
+  }
+  float sc0 = 0.f, sc1 = 0.f;
+  if (rank == 0 && n_mine < N) {
+    sc0 = __ldg(s0 + n_mine);
+    if (EPI == SWIGLU) sc1 = __ldg(s1 + n_mine);
+  }
+
+  // ---- the x slice, first out: CK columns [0, rows_per) are x[:, r0 + j],
+  // then x[:, K/2 + r0 + j]; OUT columns are x[:, r0 + j]; zeros past M and
+  // past the slice. Whole 16-byte chunks (xvec) copy asynchronously.
+  {
+    const int chunks = width / 8;
+    for (int idx = tid; idx < MROWS * chunks; idx += NTHREADS) {
+      const int m = idx / chunks, j0 = (idx % chunks) * 8;
+      const int half = MODE == CK && j0 >= rows_per ? 1 : 0;
+      const int jj = j0 - half * rows_per;            // offset in the slice
+      const __nv_bfloat16* src = x + (size_t)m * K + half * (K / 2) + r0 + jj;
+      __nv_bfloat16* dst = xs + (size_t)m * ldx + j0;
+      if (m < M && xvec && jj + 8 <= nrows) {
+        cp_async16(dst, src);
+        continue;
+      }
+      uint32_t u[4] = {0u, 0u, 0u, 0u};
+      if (m < M) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          if (jj + e < nrows)
+            u[e / 2] |= (uint32_t)__bfloat16_as_ushort(src[e]) << (16 * (e % 2));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  // registers of one group of PF steps: rows 2t, 2t+1, 2t+8, 2t+9 of the
+  // thread's columns; a step past the slice, a row past it or a thread
+  // wholly past the columns loads zeros
+  uint2 bufA[PF][NW][4], bufB[PF][NW][4];
+  const size_t ld = (size_t)pcol;
+  const int8_t* base0 = w0 + (size_t)(r0 + 2 * t) * ld + c0;
+  const int8_t* base1 = (NW == 2 ? w1 : w0) + (size_t)(r0 + 2 * t) * ld + c0;
+  auto load_group = [&](uint2 (&buf)[PF][NW][4], int first) {
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int st = first + WARPS * i;
+      const int rr = st * STEP + 2 * t;               // row of the slice
+      const bool full = st < nsteps && rr + 9 < nrows && left > 0;
+      const bool part = st < nsteps && left > 0 && !full;
+      const int8_t* b[2] = {base0 + (size_t)st * STEP * ld, base1 + (size_t)st * STEP * ld};
+      const int off[4] = {0, 1, 8, 9};
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint2 v = make_uint2(0u, 0u);
+          if (full || (part && rr + off[q] < nrows))
+            v = sk_load8<VEC>(b[w] + off[q] * ld, left);
+          buf[i][w][q] = v;
+        }
+    }
+  };
+  // two groups in flight before the wait for x
+  const int group = WARPS * PF;                      // steps between two groups of a warp
+  int first = warp;
+  load_group(bufA, first);
+  if (first + group < nsteps) load_group(bufB, first + group);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  float acc[NW][TILES][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int j = 0; j < TILES; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[w][j][e] = 0.f;
+
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(xs) + (size_t)g * (ldx / 2) + t;
+  auto compute_group = [&](const uint2 (&buf)[PF][NW][4], int first) {
+#pragma unroll
+    for (int i = 0; i < PF; ++i) {
+      const int st = first + WARPS * i;
+      if (st >= nsteps) break;
+      const int kw = st * STEP / 2;                  // the step's first x word
+      const uint32_t blo[2] = {xw[kw], xw[kw + 4]};
+      uint32_t bhi[2] = {0u, 0u};
+      if (MODE == CK) bhi[0] = xw[kw + rows_per / 2], bhi[1] = xw[kw + rows_per / 2 + 4];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const uint2* r = buf[i][w];
+        if (MODE == CK) {
+#pragma unroll
+          for (int j = 0; j < TILES; ++j) {
+            const uint32_t p0 = sk_pair(r[0], r[1], 2 * j), p1 = sk_pair(r[0], r[1], 2 * j + 1);
+            const uint32_t q0 = sk_pair(r[2], r[3], 2 * j), q1 = sk_pair(r[2], r[3], 2 * j + 1);
+            const uint32_t alo[4] = {sk_decode(p0, false), sk_decode(p1, false),
+                                     sk_decode(q0, false), sk_decode(q1, false)};
+            mma_bf16(acc[w][j], alo, blo);
+            const uint32_t ahi[4] = {sk_decode(p0, true), sk_decode(p1, true),
+                                     sk_decode(q0, true), sk_decode(q1, true)};
+            mma_bf16(acc[w][j], ahi, bhi);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < TILES; ++j) {
+            const uint32_t p = sk_pair(r[0], r[1], j), q = sk_pair(r[2], r[3], j);
+            const uint32_t a[4] = {sk_decode(p, false), sk_decode(p, true),
+                                   sk_decode(q, false), sk_decode(q, true)};
+            mma_bf16(acc[w][j], a, blo);
+          }
+        }
+      }
+    }
+  };
+
+  // ---- stream: groups of PF steps, double-buffered in registers; a buffer
+  // takes the group after next as soon as its own is multiplied
+  while (first < nsteps) {
+    compute_group(bufA, first);
+    first += group;
+    if (first >= nsteps) break;
+    if (first + group < nsteps) load_group(bufA, first + group);
+    compute_group(bufB, first);
+    first += group;
+    if (first + group < nsteps) load_group(bufB, first + group);
+  }
+  __syncthreads();                                   // the x slice is spent
+
+  // ---- warps -> block, in warp order. red[warp][m][e]: e is the unit's
+  // output (CK: packed column, + UO for the second weight; OUT: packed
+  // column, + COLS for its high nibble); C fragment c0/c1 are x rows 2t and
+  // 2t+1 of A row g, c2/c3 of A row g+8
+  {
+    float* rw = red + (size_t)warp * MROWS * EW;
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int j = 0; j < TILES; ++j) {
+        const int eg = MODE == CK ? w * UO + 8 * g + 2 * j : 8 * g + j;      // A row g
+        const int eh = MODE == CK ? eg + 1 : COLS + 8 * g + j;              // A row g+8
+        rw[(2 * t) * EW + eg] = acc[w][j][0];
+        rw[(2 * t + 1) * EW + eg] = acc[w][j][1];
+        rw[(2 * t) * EW + eh] = acc[w][j][2];
+        rw[(2 * t + 1) * EW + eh] = acc[w][j][3];
+      }
+  }
+  __syncthreads();
+  // the block's sums go to slot `rank` of rank 0's receive buffer (a
+  // block alone keeps them in its own)
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");   // phase 1
+  {
+    float* dst = (S == 1 ? recv : cluster.map_shared_rank(recv, 0)) +
+                 (size_t)rank * MROWS * EW;
+    for (int i = tid; i < M * EW; i += NTHREADS) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < WARPS; ++q) v += red[(size_t)q * MROWS * EW + i];
+      dst[i] = v;                                    // i = m * EW + e
+    }
+  }
+  // phase 2: the sums are in rank 0; the other ranks are done
+  if (S == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+    if (rank != 0) return;
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  }
+
+  // ---- rank 0: the S slices in rank order, then the epilogue of output
+  // column n_mine for x rows m = tid / UO, tid / UO + NTHREADS / UO, ...
+  if (n_mine >= N) return;
+  for (int m = tid / UO; m < M; m += NTHREADS / UO) {
+    float a0 = 0.f, a1 = 0.f;
+    for (int q = 0; q < S; ++q) {
+      const float* pq = recv + (size_t)q * MROWS * EW + m * EW;
+      a0 += pq[e_mine];
+      if (NW == 2) a1 += pq[UO + e_mine];
+    }
+    float v;
+    if (EPI == SWIGLU) {
+      const float gv = a0 * sc0, u = a1 * sc1;
+      v = gv * (1.f / (1.f + expf(-gv))) * u;
+    } else {
+      v = a0 * sc0;
+    }
+    out[(size_t)m * N + n_mine] = __float2bfloat16(v);
+  }
 }
 
 // ------------------------------------------------------------ launchers
@@ -841,8 +1196,7 @@ void launch_gemm(const float* x, const int8_t* w0, const int8_t* w1, const float
   const int ncols = MODE == CK ? N : N / 2;
   const int per = MODE == CK ? BN : BN / 2;
   dim3 grid((ncols + per - 1) / per, (M + BM - 1) / BM);
-  gemm_kernel<float, MODE, NW, EPI><<<grid, NT, 0, st>>>(x, w0, w1, s0, s1, out, M, K,
-                                                         N);
+  gemm_kernel<MODE, NW, EPI><<<grid, NT, 0, st>>>(x, w0, w1, s0, s1, out, M, K, N);
 }
 
 template <int MODE, int NW, int EPI>
@@ -860,6 +1214,14 @@ void launch_gemm(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
 }
 
 // ---- tma launcher (host)
+// Devices (bit i: device i) on which a kernel's shared memory limit is set,
+// one flag a kernel (K names its configuration, I its variant). `static`:
+// a flag of each library of its own, also where two builds of this header
+// share a process (function-local statics of templates would be unified
+// across the libraries by the host compiler).
+template <typename K, int I>
+static unsigned long long attr_set = 0;
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave,
@@ -920,7 +1282,7 @@ cudaError_t launch_tma_nwg(const CUtensorMap& xl, const CUtensorMap& xh,
                            int dev, int grid, cudaStream_t st) {
   using C = tma::Cfg<NWG>;
   auto kernel = tma_kernel<MODE, EPI, NWG>;
-  static unsigned long long ready = 0;   // devices with the attribute set
+  unsigned long long& ready = attr_set<tma::Cfg<NWG>, MODE * 2 + EPI>;
   if (!(ready >> dev & 1ull)) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
@@ -997,8 +1359,10 @@ int launch_tiled(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
   return ROUTE_MMA;
 }
 
-template <typename T, int MODE, int NW, int MT>
-void launch_gemv_mt(const T* x, const int8_t* w0, const int8_t* w1, float* part,
+// M <= 8, f32 x: the FMA streaming kernel into the workspace, the slices
+// summed by launch_finish
+template <int MODE, int NW, int MT>
+void launch_gemv_mt(const float* x, const int8_t* w0, const int8_t* w1, float* part,
                     int M, int K, int N, int splits, cudaStream_t st) {
   const int prow = MODE == CK ? K / 2 : K;
   const int pcol = MODE == CK ? N : N / 2;
@@ -1006,25 +1370,133 @@ void launch_gemv_mt(const T* x, const int8_t* w0, const int8_t* w1, float* part,
   const bool vec = pcol % 4 == 0 && reinterpret_cast<uintptr_t>(w0) % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(w1) % 4 == 0;
   dim3 grid((pcol + GCOLS - 1) / GCOLS, splits);
-  gemv_kernel<T, MODE, NW, MT><<<grid, NT, 0, st>>>(x, w0, w1, part, M, K, N,
-                                                     rows_per, vec ? 1 : 0);
+  gemv_kernel<MODE, NW, MT><<<grid, NT, 0, st>>>(x, w0, w1, part, M, K, N, rows_per,
+                                                 vec ? 1 : 0);
 }
 
-template <typename T, int MODE, int NW>
-void launch_gemv(const T* x, const int8_t* w0, const int8_t* w1, float* part,
-                 int M, int K, int N, int splits, cudaStream_t st) {
-  if (M <= 1) launch_gemv_mt<T, MODE, NW, 1>(x, w0, w1, part, M, K, N, splits, st);
-  else if (M <= 2) launch_gemv_mt<T, MODE, NW, 2>(x, w0, w1, part, M, K, N, splits, st);
-  else if (M <= 4) launch_gemv_mt<T, MODE, NW, 4>(x, w0, w1, part, M, K, N, splits, st);
-  else launch_gemv_mt<T, MODE, NW, 8>(x, w0, w1, part, M, K, N, splits, st);
+template <int MODE, int NW>
+void launch_gemv(const float* x, const int8_t* w0, const int8_t* w1, float* part, int M,
+                 int K, int N, int splits, cudaStream_t st) {
+  if (M <= 1) launch_gemv_mt<MODE, NW, 1>(x, w0, w1, part, M, K, N, splits, st);
+  else if (M <= 2) launch_gemv_mt<MODE, NW, 2>(x, w0, w1, part, M, K, N, splits, st);
+  else if (M <= 4) launch_gemv_mt<MODE, NW, 4>(x, w0, w1, part, M, K, N, splits, st);
+  else launch_gemv_mt<MODE, NW, 8>(x, w0, w1, part, M, K, N, splits, st);
 }
 
-template <typename T, int NW, int EPI>
-void launch_finish(const float* part, const float* s0, const float* s1, T* out,
-                   int M, int N, int splits, cudaStream_t st) {
+// ---- skinny launcher (bf16 x, M <= 8)
+template <int MODE, int EPI, bool VEC>
+struct Skinny {
+  static constexpr int PF = EPI == SWIGLU ? 1 : 2;   // steps a register group
+  static auto kernel() { return skinny_kernel<MODE, EPI, VEC, PF>; }
+
+  static cudaLaunchConfig_t config(int S, int units, size_t smem, cudaStream_t st,
+                                   cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S, units, 1);
+    cfg.blockDim = dim3(sk::NTHREADS, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+  }
+
+  // the dynamic shared memory limit, set once per device
+  static cudaError_t prepare() {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (dev >= 64) return cudaErrorInvalidDevice;
+    unsigned long long& ready = attr_set<Skinny, 0>;
+    if (!(ready >> dev & 1ull)) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, sk::SMEM_MAX);
+      if (e != cudaSuccess) return e;
+      ready |= 1ull << dev;
+    }
+    return cudaSuccess;
+  }
+
+  static cudaError_t launch(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
+                            const float* s0, const float* s1, __nv_bfloat16* out, int M,
+                            int K, int N, int S, int rows_per, int units, int xvec,
+                            size_t smem, cudaStream_t st) {
+    cudaError_t e = prepare();
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(S, units, smem, st, attr);
+    return cudaLaunchKernelEx(&cfg, kernel(), x, w0, w1, s0, s1, out, M, K, N, rows_per,
+                              xvec);
+  }
+
+  // clusters of S blocks with this shared memory that the device holds at
+  // once (cudaOccupancyMaxActiveClusters); 0 on an error
+  static int capacity(int S, size_t smem) {
+    if (prepare() != cudaSuccess) return 0;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(S, S, smem, 0, attr);
+    int n = 0;
+    return cudaOccupancyMaxActiveClusters(&n, kernel(), &cfg) == cudaSuccess ? n : 0;
+  }
+};
+
+template <int MODE, int EPI>
+bool skinny_plan_ok(int K, int N, int S, int rows_per) {
+  const int prow = MODE == CK ? K / 2 : K;
+  const int pcol = MODE == CK ? N : N / 2;
+  return S >= 1 && S <= sk::MAX_SPLIT && rows_per > 0 && rows_per % sk::STEP == 0 &&
+         (long long)(S - 1) * rows_per < prow && (long long)S * rows_per >= prow &&
+         (pcol + sk::COLS - 1) / sk::COLS <= 65535;
+}
+
+// M <= 8, bf16 x: one launch of skinny_kernel on the wrapper's plan (S
+// blocks a cluster, rows_per packed rows a block). A plan that does not
+// cover the packed rows exactly once is refused (cudaErrorInvalidValue).
+// An x slice too large for shared memory takes the tiled route instead.
+// Returns the route taken.
+template <int MODE, int EPI>
+int launch_skinny(const __nv_bfloat16* x, const int8_t* w0, const int8_t* w1,
+                  const float* s0, const float* s1, __nv_bfloat16* out, int M, int K,
+                  int N, int S, int rows_per, cudaStream_t st, cudaError_t* err) {
+  constexpr int NW = EPI == SWIGLU ? 2 : 1;
+  const int pcol = MODE == CK ? N : N / 2;
+  if (!skinny_plan_ok<MODE, EPI>(K, N, S, rows_per)) {
+    *err = cudaErrorInvalidValue;
+    return ROUTE_GEMV;
+  }
+  const size_t smem = sk::smem_bytes<MODE, NW>(rows_per, S);
+  if (smem > (size_t)sk::SMEM_MAX)
+    return launch_tiled<MODE, NW, EPI>(x, w0, w1, s0, s1, out, M, K, N, st, err);
+  const bool vec = pcol % 8 == 0 && reinterpret_cast<uintptr_t>(w0) % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(w1 ? w1 : w0) % 8 == 0;
+  const int xvec = K % 8 == 0 && (MODE != CK || (K / 2) % 8 == 0) &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int units = (pcol + sk::COLS - 1) / sk::COLS;
+  *err = vec ? Skinny<MODE, EPI, true>::launch(x, w0, w1, s0, s1, out, M, K, N, S, rows_per,
+                                               units, xvec, smem, st)
+             : Skinny<MODE, EPI, false>::launch(x, w0, w1, s0, s1, out, M, K, N, S,
+                                                rows_per, units, xvec, smem, st);
+  return ROUTE_GEMV;
+}
+
+// clusters of S blocks of the streaming kernel for this product (x slices
+// of rows_per packed rows) that the device holds at once
+template <int MODE, int EPI>
+int skinny_capacity(int S, int rows_per) {
+  constexpr int NW = EPI == SWIGLU ? 2 : 1;
+  if (S < 1 || S > sk::MAX_SPLIT || rows_per <= 0) return 0;
+  return Skinny<MODE, EPI, true>::capacity(S, sk::smem_bytes<MODE, NW>(rows_per, S));
+}
+
+template <int NW, int EPI>
+void launch_finish(const float* part, const float* s0, const float* s1, float* out, int M,
+                   int N, int splits, cudaStream_t st) {
   const int total = M * N;
-  finish_kernel<T, NW, EPI><<<(total + NT - 1) / NT, NT, 0, st>>>(part, s0, s1, out,
-                                                                  M, N, splits);
+  finish_kernel<NW, EPI><<<(total + NT - 1) / NT, NT, 0, st>>>(part, s0, s1, out, M, N,
+                                                               splits);
 }
 
 }  // namespace int4k

@@ -14,9 +14,11 @@
 `int4_mlp` launches the hand-written CUDA kernel (`csrc/int4_mlp.cu`) for
 CUDA tensors and takes the plain PyTorch version (`int4_mlp_reference`)
 only for CPU tensors; a failed build or launch raises. One call counts as
-one launch however many CUDA launches it makes. `int4_mlp.routes` counts
-the routes of the two products of each call (gate and up, then down) as
-`int4_matmul.routes` does: two per call.
+one launch however many CUDA launches it makes (two on the bf16 streaming
+route: gate and up with the SwiGLU epilogue writing h, then down, each on
+its own `cluster_plan`). `int4_mlp.routes` counts the routes of the two
+products of each call (gate and up, then down) as `int4_matmul.routes`
+does: two per call.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from vlm_fo1_tpu_torch.ops.int4_matmul import (
     SKINNY_ROWS,
     _DTYPES,
     check_cuda_inputs,
-    skinny_splits,
+    fma_splits,
+    sm_count,
+    stream_plan,
     unpack_int4,
     unpack_int4_halves,
 )
@@ -59,8 +63,10 @@ def _load():
         lib = cuda_lib.load("int4_mlp")
         fn = lib.fo1_int4_mlp
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 10 + [ci] * 6 + [vp, ctypes.POINTER(ci)]
+        fn.argtypes = [vp] * 10 + [ci] * 8 + [vp, ctypes.POINTER(ci)]
         fn.restype = ci
+        lib.fo1_int4_mlp_capacity.argtypes = [ci, ci, ci]
+        lib.fo1_int4_mlp_capacity.restype = ci
         _lib = lib
     return _lib
 
@@ -97,19 +103,29 @@ def int4_mlp(x, node):
     if m == 0:
         return out                           # nothing to launch
     h = torch.empty((m, i_dim), dtype=x.dtype, device=dev)
-    s1 = s2 = 0
+    lib = _load()
+    s1 = r1 = s2 = r2 = 0
     ws = None
     if m <= SKINNY_ROWS:
-        s1, s2 = skinny_splits(dhalf, i_dim), skinny_splits(i_dim, dhalf)
-        ws = torch.empty(max(2 * s1 * m * i_dim, s2 * m * d),
-                         dtype=torch.float32, device=dev)
-    lib = _load()
+        index = dev.index
+        if x.dtype == torch.bfloat16:
+            cap = lib.fo1_int4_mlp_capacity
+            s1, r1 = stream_plan(("int4_mlp gate_up", dhalf, i_dim), dhalf,
+                                 i_dim, index, lambda s, r: cap(0, s, r))
+            s2, r2 = stream_plan(("int4_mlp down", i_dim, dhalf), i_dim,
+                                 dhalf, index, lambda s, r: cap(1, s, r))
+        else:
+            sms = sm_count(index)
+            s1, s2 = fma_splits(dhalf, i_dim, sms), fma_splits(i_dim, dhalf,
+                                                                sms)
+            ws = torch.empty(max(2 * s1 * m * i_dim, s2 * m * d),
+                             dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     route = (ctypes.c_int * 2)(-1, -1)
     err = lib.fo1_int4_mlp(
         x.data_ptr(), *(t.data_ptr() for t in tensors), h.data_ptr(),
         None if ws is None else ws.data_ptr(), out.data_ptr(),
-        m, d, i_dim, s1, s2, _DTYPES[x.dtype], stream, route)
+        m, d, i_dim, s1, r1, s2, r2, _DTYPES[x.dtype], stream, route)
     if err != 0:
         raise RuntimeError(f"int4_mlp kernel launch failed: CUDA error "
                            f"{err}")

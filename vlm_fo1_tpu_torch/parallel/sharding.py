@@ -34,9 +34,14 @@ int8 leaves follow the JAX rules: `w_q` takes the weight's layout, a
 linear's scale takes the out-channel shard (so a row-parallel scale stays
 whole), and the token table's per-row scale stays replicated. Leaves that
 no rule names stay replicated, as in JAX: int4 linears and the fused int4
-MLP, DaViT, the HFRE, the projectors and the norms. A w8a8 row-parallel
-linear would quantize a part of each activation row, unlike the dense
-model, so `shard_model` refuses one.
+MLP, DaViT, the HFRE, the projectors and the norms. A w8a8 linear
+quantizes each activation row as a whole; GSPMD keeps that whole in JAX,
+and here a row-parallel w8a8 shard (`w8a8_row_parallel`) makes it whole
+with three more collectives: the column absmax is all-gathered, so every
+rank picks the dense model's outlier columns over the full width, each
+row's absmax over the rest is MAX all-reduced before quantizing, and the
+int32 partial products are summed (exactly) before the scale. Its
+single-row calls (decode) stay weight-only, as in the dense model.
 
 The decode graphs (`runtime/graphs.py`) capture the collectives of the
 decode step with the rest of it: NCCL allows capture on the capture
@@ -55,6 +60,7 @@ from torch import nn
 
 from vlm_fo1_tpu_torch import nn as tnn
 from vlm_fo1_tpu_torch.models.llm import MLP, TextModel
+from vlm_fo1_tpu_torch.nn import W8A8_OUTLIER_CHANNELS, exact_int_mm
 from vlm_fo1_tpu_torch.models.vit import VisionTransformer
 from vlm_fo1_tpu_torch.parallel.multihost import (
     all_gather_stacked,
@@ -177,13 +183,59 @@ class ColumnQLinear8(tnn.QLinear8):
         return super().forward(copy_to_model(x, self.group))
 
 
+def w8a8_row_parallel(x, w_q, scale, group):
+    """This rank's part of a row-parallel `nn.w8a8_matmul`, summed over
+    `group`: x [..., in/m] and w_q [out, in/m] hold this rank's input
+    columns, scale [out] is whole; returns the dense product of the whole
+    rows, [..., out] in x's dtype, on every rank. Forward only.
+
+    The outlier columns are the dense ones: the top-k (k = min(64, in/8)
+    of the full width, stable sort, the lower index first) of the column
+    absmax all-gathered over the group; each rank takes those in its
+    slice. Each row's absmax over the other columns is MAX all-reduced,
+    so every rank quantizes with the dense row scale; the int32 partial
+    products are summed over the group (exact) before the scale, and the
+    f32 outlier products by a sum of their own."""
+    xf = x.float()
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    width = xf.shape[-1]
+    lo = r * width
+    k = min(W8A8_OUTLIER_CHANNELS, width * m // 8)
+    y_out = torch.zeros(*xf.shape[:-1], w_q.shape[0], dtype=torch.float32,
+                        device=x.device)
+    if k > 0:
+        col_amax = xf.abs().reshape(-1, width).amax(dim=0)
+        full = all_gather_stacked(col_amax, group).reshape(-1)
+        oidx = torch.sort(full, descending=True, stable=True).indices[:k]
+        mine = oidx[(oidx >= lo) & (oidx < lo + width)] - lo
+        if mine.numel():
+            w_o = w_q[:, mine].float() * scale[:, None]
+            y_out = xf[..., mine] @ w_o.t()
+            keep = torch.ones(width, dtype=torch.float32, device=x.device)
+            keep[mine] = 0.0
+            xf = xf * keep
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    sx = torch.clamp(amax, min=1e-6) * (1.0 / 127.0)
+    x_q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    acc = exact_int_mm(x_q.reshape(-1, width), w_q.t()).contiguous()
+    dist.all_reduce(acc, group=group)
+    dist.all_reduce(y_out, group=group)
+    acc = acc.reshape(*x.shape[:-1], w_q.shape[0])
+    return (acc.float() * sx * scale + y_out).to(x.dtype)
+
+
 class RowQLinear8(tnn.QLinear8):
     def __init__(self, w_q, scale, bias, group, like):
         super().__init__(w_q, scale, bias)
+        self.a8 = like.a8
         self.group = group
 
     def forward(self, x):
-        y = reduce_from_model(self.product(x), self.group)
+        if self.a8 is not None and x.dim() >= 2 and x.shape[-2] > 1:
+            y = w8a8_row_parallel(x, self.w_q, self.scale, self.group)
+        else:
+            y = reduce_from_model(self.product(x), self.group)
         return y if self.bias is None else y + self.bias
 
 
@@ -315,10 +367,6 @@ def _shard_linear(mod, mode, group, r, m):
         return shard_leaf(getattr(mod, leaf), mode, leaf, r, m)
 
     if isinstance(mod, tnn.QLinear8):
-        if mode == "row" and mod.a8 is not None:
-            raise ValueError(
-                "a w8a8 linear quantizes each activation row as a whole; "
-                "a row-parallel shard would see a part of the row")
         cls = RowQLinear8 if mode == "row" else ColumnQLinear8
         return cls(cut("w_q"), cut("scale"), cut("bias"), group, mod)
     cls = RowLinear if mode == "row" else ColumnLinear

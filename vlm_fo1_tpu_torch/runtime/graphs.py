@@ -24,6 +24,7 @@ the eager warm-up and the replays, the kernels that really ran.
 
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 
 import torch
@@ -73,6 +74,11 @@ class CapturedSteps:
         # the capture empties the allocator's cache first; empty it here,
         # so the growth of the reserved bytes is the graph's pool
         torch.cuda.synchronize(device)
+        # a program dropped earlier may still wait in a reference cycle (its
+        # captured steps hold the program); the collector destroying its
+        # graph in the middle of this capture would invalidate the capture,
+        # so collect it now
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()

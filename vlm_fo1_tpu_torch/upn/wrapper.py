@@ -15,6 +15,10 @@ device; `filter` (threshold, NMS, int cast) runs on the host.
 
 from __future__ import annotations
 
+import argparse
+import pickle
+import re
+
 import numpy as np
 import torch
 from PIL import Image
@@ -89,13 +93,44 @@ def random_init_(model: UPN, seed: int = 0) -> UPN:
     return model
 
 
-def load_upn_checkpoint(model: UPN, ckpt_path: str) -> UPN:
+# what a checkpoint may hold beside tensors, containers and plain values:
+# the `args` Namespace that training scripts of the DETR family save
+SAFE_GLOBALS = (argparse.Namespace,)
+
+
+def read_checkpoint(ckpt_path: str, trusted: bool = False):
+    """torch.load of a `.pth` on the CPU. By default only tensors,
+    containers, plain values and SAFE_GLOBALS are unpickled; any other
+    object raises pickle.UnpicklingError naming it. trusted=True unpickles
+    whatever the file holds (weights_only=False, as the JAX converter
+    loads), which runs code from the file: only for a file whose source
+    is trusted."""
+    if trusted:
+        return torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    try:
+        with torch.serialization.safe_globals(list(SAFE_GLOBALS)):
+            return torch.load(ckpt_path, map_location="cpu",
+                              weights_only=True)
+    except pickle.UnpicklingError as e:
+        found = re.search(r"GLOBAL (\S+)", str(e))
+        what = found.group(1) if found else "an object"
+        raise pickle.UnpicklingError(
+            f"UPN checkpoint {ckpt_path} holds {what}, which is not a tensor,"
+            f" a plain value or one of "
+            f"{[f'{c.__module__}.{c.__qualname__}' for c in SAFE_GLOBALS]};"
+            f" pass trusted=True to unpickle it (runs code from the file)"
+        ) from e
+
+
+def load_upn_checkpoint(model: UPN, ckpt_path: str,
+                        trusted: bool = False) -> UPN:
     """Load a reference `.pth` (`checkpoint["model"]`, `module.` prefixes
     stripped; older `backbone.model.0.` / `backbone.0.body.` Swin prefixes
     accepted). Every parameter of the model must be present; keys the model
     does not have (shared copies of the box head, training state) are
-    ignored, as the JAX converter ignores them."""
-    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    ignored, as the JAX converter ignores them. The file is read by
+    `read_checkpoint` (`trusted` as there)."""
+    ckpt = read_checkpoint(ckpt_path, trusted)
     state = ckpt.get("model", ckpt)
     sd = {k.replace("module.", ""): v for k, v in state.items()}
     if not any(k.startswith(_SWIN_PREFIX) for k in sd):
@@ -116,10 +151,12 @@ def load_upn_checkpoint(model: UPN, ckpt_path: str) -> UPN:
 class UPNWrapper:
     def __init__(self, ckpt_path: str | None = None,
                  cfg: UPNConfig | dict | str | None = None, swin_cfg=None,
-                 dtype=torch.bfloat16, seed: int = 0, device="cuda"):
+                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                 trusted: bool = False):
         """cfg: a UPNConfig, a reference-style `model` dict or the path of a
         reference config .py. bfloat16 by default; the box chain inside
-        the model stays float32."""
+        the model stays float32. trusted: unpickle any object the
+        checkpoint holds (`read_checkpoint`)."""
         if isinstance(cfg, str):
             cfg = UPNConfig.from_config_file(cfg)
         elif isinstance(cfg, dict):
@@ -130,7 +167,7 @@ class UPNWrapper:
         self.model = UPN(self.cfg, self.swin_cfg, device=device, dtype=dtype)
         self.device = self.model.device
         if ckpt_path is not None:
-            load_upn_checkpoint(self.model, ckpt_path)
+            load_upn_checkpoint(self.model, ckpt_path, trusted)
         else:
             random_init_(self.model, seed)
 
