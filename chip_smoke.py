@@ -115,26 +115,38 @@ Phases (any failure exits non-zero and prints no result line):
      <= 5e-2), the peak memory of each; then three AdamW steps
      (`training.train_step.make_train_step`, 12 flash launches) on one
      seeded batch, loss, ms and peak memory per step;
- 18. the int4 unpack microbenchmark at tools/xp_int4_unpack.py's geometry
-     (gate and up packed [1024, 11008]): six decode strategies (none,
-     divide, shift, float, cvt, magic), each strategy's decoded values
-     equal to its plain version exactly (and, but for the TPU file's
-     unsigned float decode, to unpack_int4_halves), XOR checksums equal,
-     then each strategy's ms and GB/s against 3.35 TB/s;
- 19. the MSDA streaming microbenchmark at tools/xp_msda_dma.py's geometry
-     (8 heads x 299 query blocks of 256, 4 passes): its twelve cases (the
-     file's six input sets, out width 128, no value band, one pass, 48 /
-     96 / 192 KB of shared memory a block), zeros and 32-bit checksums
-     equal to the plain version's, ms a pass, GB/s against 3.35 TB/s;
+ 18. (after phase 24) the int4 unpack microbenchmark at
+     tools/xp_int4_unpack.py's geometry: the TPU file's fused gate/up
+     product (x [8, 2048] bf16, gate and up packed [1024, 11008], o [8,
+     2048] f32 the sum over 43 tiles of 256 columns of g_t * u_t) for six
+     decode strategies (none, divide, shift, float, cvt, magic), each
+     against its plain version (worst row relative L2 <= 1e-4), o's
+     columns past 256 zero, bit-equal on repeat; shift, cvt and magic
+     equal to divide; two planted faults (one byte's nibbles swapped, a
+     tile's up columns shifted) through the plain version that must read
+     above the bound; one device kernel a call (profiler and wrapper);
+     each strategy's ms and GB/s of the packed bytes against 3.35 TB/s,
+     the copy ring alone, the plain version and two torch.matmul on the
+     dequantised weights with g * u and the tile sum;
+ 19. (after phase 18) the MSDA streaming microbenchmark at
+     tools/xp_msda_dma.py's geometry (8 heads x 299 query blocks of 256,
+     4 passes): its twelve cases (the file's six input sets, out width
+     128, no value band, one pass, 48 / 96 / 192 KB of shared memory a
+     block), zeros and 32-bit checksums equal to the plain version's, ms
+     a pass, GB/s against 3.35 TB/s;
  20. the MSDA gather microbenchmark at tools/xp_msda_micro.py's geometry
      (8 heads x 76,800 queries x 4 slots of 128-wide bf16 rows): blocks of
      256 / 512 / 1024 queries, query- and slot-major indices, bit-equal to
      the plain version, ms, us a block and ns a gathered sample;
  21. the chained small-product microbenchmark at tools/xp_matmul_floor.py's
-     geometry (600 steps of 1024 queries x 4 slots, mma.sync bf16): row
-     tiles of 64-512, the weight / same / k512 variants, worst row relative
-     L2 <= 1e-4 against the plain version, ms, ns a 64-query slot visit and
-     TFLOP/s;
+     geometry (600 steps of 1024 queries x 4 slots, wgmma bf16): row tiles
+     of 64-512, the weight / same / k512 variants, worst row relative L2 <=
+     1e-4 against the plain version, bit-equal on repeat, two planted
+     faults (one slot skipped, one k-step skipped) through the plain
+     version above the bound, one device kernel a call; ms, ns a 64-query
+     slot visit and TFLOP/s (none above 989), rows64 at 300 and 600 steps
+     (the time ratio in [1.8, 2.2]: every step computed), one stride-0
+     batched torch.matmul over the 600 steps beside each case but weight;
  22. (after phase 5) FO1Config.tiny() f32 with shared weights: generate_batch
      on a same-geometry batch (stacked) and a mixed one (per item), top-p,
      the staged single request, ServingPipeline, ContinuousServingPipeline
@@ -1346,63 +1358,165 @@ def phase_quant_fo1(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
 
 # ------------------------------------------------ int4 unpack benchmark
 
-def phase_int4_unpack(sm, iu, unpack_int4_halves):
-    """The nibble-decode microbenchmark at tools/xp_int4_unpack.py's
-    geometry (gate and up packed [D/2, I] = [1024, 11008], seeded bytes):
-    each strategy's decoded values equal its plain version exactly (divide,
-    shift, cvt and magic also equal unpack_int4_halves; float keeps the TPU
-    file's unsigned low nibble), the kernel's XOR checksum equals the plain
-    one, then each strategy timed as CUDA graph replays over copies larger
-    than the L2 cache, its rate against 3.35 TB/s."""
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    shape = (iu.D // 2, iu.I)
-    g = torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
-                      generator=gen)
-    u = torch.randint(-128, 128, shape, dtype=torch.int8, device="cuda",
-                      generator=gen)
-    nbytes = 2 * g.numel()
-    halves = [torch.cat(p) for p in zip(unpack_int4_halves(g.reshape(-1)),
-                                        unpack_int4_halves(u.reshape(-1)))]
-    max_err = 0.0
-    for s in iu.STRATEGIES:
-        ck = iu.unpack_bench(g, u, s).item()
-        cp = iu.unpack_bench_reference(g, u, s).item()
-        sm.check(ck == cp, f"int4 unpack {s}: checksum kernel {ck:#010x} == "
-                 f"plain {cp:#010x}")
-        if s == "none":
-            continue
-        got = iu.unpack_bench(g, u, s, decoded=True)
-        ref = iu.unpack_bench_reference(g, u, s, decoded=True)
+# worst relative L2 error of one output row of the microbenchmarks' products
+# against their plain versions: the same exact bf16 products, f32 sums in
+# another order (the tensor cores add a k-step's 16 products with fewer
+# guard bits than a chain of f32 multiply-adds; a row reads ~1e-7 - 1e-6);
+# one byte's nibbles swapped in the unpack product, or a wrong slot block,
+# k-step or row tile of the chained products, moves a row far above it
+UNPACK_ROW_REL = 1e-4
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of fn launches, from
+    torch.profiler's CUDA activity (None when it recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, ref))
-        max_err = max([max_err] + [(a.float() - b.float()).abs().max().item()
-                                   for a, b in zip(got, ref)])
-        as_halves = all(torch.equal(a.float(), b.float())
-                        for a, b in zip(got, halves))
-        sm.check(same and (as_halves or s == "float"),
-                 f"int4 unpack {s}: decoded values equal the plain version "
-                 f"{same}, equal unpack_int4_halves {as_halves}")
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "memcpy" not in e.name.lower()
+             and "memset" not in e.name.lower()]
+    return names or None
+
+
+def _one_kernel(sm, what, fn, kernel, counter):
+    """One call of fn is one device kernel named `kernel`, counted once by
+    its wrapper's counter (a zero-argument function)."""
+    before = counter()
+    names = _device_kernels(fn)
+    counted = counter() - before
+    if names is None:
+        sm.check(counted == 2, f"{what}: the profiler recorded no device "
+                 f"activity; the wrapper counted {counted} for 2 calls")
+        return None
+    sm.check(len(names) == 1 and kernel in names[0] and counted == 2,
+             f"{what}: {len(names)} device kernel(s) a call "
+             f"{sorted(set(n.split('<')[0][-40:] for n in names))}, the "
+             f"wrapper counted {counted} for 2 calls (want one {kernel})")
+    return len(names)
+
+
+def _unpack_faults(g, u, ti):
+    """Inputs under which the plain version returns what a faulty kernel
+    would: the nibbles of one byte of gate swapped, and the up columns of
+    one tile shifted by one column."""
+    swap = g.clone()
+    b = swap[5, 3 * ti + 7].to(torch.int32) & 0xFF
+    swap[5, 3 * ti + 7] = (((b & 0xF) << 4) | (b >> 4)).to(torch.uint8).view(
+        torch.int8)
+    shift = u.clone()
+    shift[:, 2 * ti:3 * ti] = torch.roll(u[:, 2 * ti:3 * ti], 1, dims=1)
+    return [("one byte's nibbles swapped", swap, u),
+            ("a tile's up columns shifted", g, shift)]
+
+
+def phase_int4_unpack(sm, iu):
+    """18. the fused gate/up product of tools/xp_int4_unpack.py at its
+    geometry (x [8, 2048] bf16, gate and up packed [1024, 11008], tiles of
+    256, seeded): for each strategy the kernel against its plain version
+    (worst row relative L2 <= UNPACK_ROW_REL), o's columns past 256 zero,
+    bit-equal on repeat; two planted faults through the plain version that
+    must read above the bound; one device kernel a call (profiler and
+    wrapper); then each strategy and the copy ring alone timed as CUDA graph
+    replays over copies of the weights larger than the L2 cache, GB/s of the
+    packed bytes against 3.35 TB/s, beside the plain version and two
+    torch.matmul on the dequantised bf16 weights with g * u and the tile
+    sum."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ti = iu.TI
+    x = torch.randn(iu.M, iu.D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    g, u = (torch.randint(-128, 128, (iu.D // 2, iu.I), dtype=torch.int8,
+                          device="cuda", generator=gen) for _ in range(2))
+    worst, max_err, outs = 0.0, 0.0, {}
+    for s in iu.STRATEGIES:
+        got = iu.unpack_bench(x, g, u, s)
+        again = iu.unpack_bench(x, g, u, s)
+        ref = iu.unpack_bench_reference(x, g, u, s)
+        torch.cuda.synchronize()
+        rel = _row_rel(got[:, :ti], ref[:, :ti])
+        zero, same = not got[:, ti:].any(), torch.equal(got, again)
+        worst = max(worst, rel)
+        if s == "magic":
+            max_err = (got - ref).abs().max().item()
+        outs[s] = got
+        sm.check(rel <= UNPACK_ROW_REL and zero and same,
+                 f"int4 unpack {s}: o worst row relative L2 {rel:.2e} (bound "
+                 f"{UNPACK_ROW_REL:g}), columns past {ti} zero {zero}, "
+                 f"bit-equal on repeat {same}")
+    sm.check(all(torch.equal(outs[s], outs["divide"])
+                 for s in ("shift", "cvt", "magic")),
+             "int4 unpack: shift, cvt and magic equal divide bit for bit "
+             "(the same decoded values)")
+    faults = {}
+    for name, fg, fu in _unpack_faults(g, u, ti):
+        rel = _row_rel(outs["magic"][:, :ti],
+                       iu.unpack_bench_reference(x, fg, fu, "magic")[:, :ti])
+        faults[name] = rel
+        sm.check(rel > UNPACK_ROW_REL, f"int4 unpack planted fault ({name}) "
+                 f"reads {rel:.2e} through the plain version, above the "
+                 f"bound")
+    grid = iu.grid_for(iu.D, iu.I, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    kernels = _one_kernel(sm, "int4 unpack magic",
+                          lambda: iu.unpack_bench(x, g, u, "magic"),
+                          "unpack_kernel", lambda: iu.unpack_bench.launches)
+    nbytes = 2 * g.numel()
     copies = _copies(nbytes, lambda: (g.clone(), u.clone()))
     iu.unpack_bench.launches = 0
     strategies = {}
     for s in iu.STRATEGIES:
-        ms = _graph_ms(lambda a, b: iu.unpack_bench(a, b, s), copies)
-        strategies[s] = {"ms": ms, "gb_per_s": nbytes / ms / 1e6,
-                         "hbm_share": nbytes / ms / 1e6 / (HBM_BYTES_PER_S
-                                                            / 1e9)}
+        ms = _graph_ms(lambda a, b: iu.unpack_bench(x, a, b, s), copies)
+        rate, share = _hbm(nbytes, ms)
+        strategies[s] = {"ms": ms, "gb_per_s": rate, "hbm_share": share}
     launches = iu.unpack_bench.launches
-    plain_ms = _timeit(lambda: iu.unpack_bench_reference(g, u, "magic"))
-    bound_ms, bound_by = _bound(nbytes + 4, 0, BF16_FLOPS)
-    sm.log("time int4 unpack (D=2048 I=11008, 22.5 MB packed, CUDA graph "
-           "replays, copies past the L2 cache): " + ", ".join(
+    ring_ms = _graph_ms(lambda a, b: iu.copy_ring(x, a, b), copies)
+    ring_rate, ring_share = _hbm(nbytes, ring_ms)
+    plain_ms = _timeit(lambda: iu.unpack_bench_reference(x, g, u, "magic"),
+                       n=2)
+    del copies
+
+    def dequantised(w):
+        lo, hi = iu.decode_magic(w)
+        return torch.cat([lo, hi], 0)
+
+    wg, wu = dequantised(g), dequantised(u)
+    lib_copies = _copies(2 * wg.numel() * 2, lambda: (wg.clone(), wu.clone()))
+
+    def library(a, b):
+        gu = torch.matmul(x, a).float() * torch.matmul(x, b).float()
+        return gu.view(iu.M, -1, ti).sum(1)
+
+    library_ms = _graph_ms(library, lib_copies)
+    del lib_copies, wg, wu
+    torch.cuda.empty_cache()
+    out_bytes = iu.M * iu.D * 4 + x.numel() * 2
+    bound_ms, bound_by = _bound(nbytes + out_bytes, 4 * iu.M * iu.D * iu.I,
+                                BF16_FLOPS)
+    sm.log(f"time int4 unpack (x [{iu.M}, {iu.D}], gate and up "
+           f"[{iu.D // 2}, {iu.I}] packed, {nbytes / 1e6:.1f} MB, {grid} "
+           f"blocks, CUDA graph replays, copies past the L2 cache): " + ", ".join(
                f"{s} {v['ms']:.4f} ms {v['gb_per_s']:.0f} GB/s"
                for s, v in strategies.items())
-           + f"; plain magic decode + checksum {plain_ms:.4f} ms (eager); "
-           f"bound {bound_ms:.4f} ms by {bound_by}; {launches} launches")
-    return {"launches": launches, "max_abs_err": max_err,
-            "ms": strategies["magic"]["ms"],
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "strategies": strategies}
+           + f"; copy ring alone {ring_ms:.4f} ms {ring_rate:.0f} GB/s "
+           f"({100 * ring_share:.0f}%); plain magic {plain_ms:.4f} ms "
+           f"(eager); two torch.matmul on dequantised bf16 weights + g * u "
+           f"+ tile sum {library_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+           f"{bound_by}; {launches} launches")
+    return {"launches": launches, "max_abs_err": max_err, "row_rel": worst,
+            "ms": strategies["magic"]["ms"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library": "two torch.matmul on dequantised bf16 weights, "
+                       "g * u and the tile sum",
+            "faults": faults, "kernels_per_call": kernels, "grid": grid,
+            "copy_ring_ms": ring_ms,
+            "copy_ring_gb_per_s": ring_rate, "strategies": strategies}
 
 
 # ------------------------------------------------ MSDA microbenchmarks
@@ -1513,11 +1627,38 @@ def phase_msda_micro(sm, mm):
 
 
 # worst relative L2 error of one output row of the chained products against
-# the plain version: the tensor cores add a k-step's 16 products in their
-# own order with fewer guard bits than a chain of f32 multiply-adds (a row
-# of 128 columns over 128-512 products reads ~1e-6); a wrong slot block or
-# row tile moves a row by O(1)
-FLOOR_ROW_REL = 1e-4
+# the plain version (UNPACK_ROW_REL's reasoning: a row of 128 columns over
+# 128-512 products reads ~1e-6)
+FLOOR_ROW_REL = UNPACK_ROW_REL
+# the time of 600 steps over 300 on rows64: each step computed
+FLOOR_STEP_RATIO = (1.8, 2.2)
+
+
+def _floor_faults(mf, lhs, rhs):
+    """The chain variant's tile as a faulty kernel would compute it: one
+    slot's product skipped, and one k-step (16 contraction slots) of one
+    slot skipped."""
+    lf, rf = lhs.float()[:, :128], rhs.float()
+    slot = sum(lf @ rf[s * 128:(s + 1) * 128] for s in range(mf.SLOTS)
+               if s != 2)
+    cut = lf.clone()
+    cut[:, 48:64] = 0
+    kstep = sum((cut if s == 1 else lf) @ rf[s * 128:(s + 1) * 128]
+                for s in range(mf.SLOTS))
+    return [("one slot skipped", slot), ("one k-step skipped", kstep)]
+
+
+def _floor_library(mf, lhs, rhs, variant):
+    """One stride-0 batched torch.matmul over the NSTEP steps computing the
+    variant's tile at every step (bf16 out), or None (weight: no single
+    call)."""
+    if variant == "weight":
+        return None
+    a = lhs if variant == "k512" else lhs[:, :128].repeat(1, mf.SLOTS)
+    b = rhs[:128].repeat(mf.SLOTS, 1) if variant == "same" else rhs
+    a3 = a.expand(mf.NSTEP, *a.shape)
+    b3 = b.expand(mf.NSTEP, *b.shape)
+    return lambda: torch.matmul(a3, b3)
 
 
 def phase_matmul_floor(sm, mf):
@@ -1525,43 +1666,87 @@ def phase_matmul_floor(sm, mf):
     tools/xp_matmul_floor.py's geometry (600 steps of 1024 queries x 4
     slots): each case's call, as it is timed, against the plain version of
     its tile (every step writes the same tile; worst row relative L2 <=
-    FLOOR_ROW_REL), then each timed as CUDA graph replays: ms, ns a
-    64-query slot visit, TFLOP/s against 989."""
+    FLOOR_ROW_REL), bit-equal on repeat; two planted faults through the
+    plain version that must read above the bound; one device kernel a call
+    (profiler and wrapper); then each case timed as CUDA graph replays: ms,
+    ns a 64-query slot visit, TFLOP/s against 989 (none may read above
+    it); rows64 at 300 and 600 steps in turns, the ratio of the times in
+    FLOOR_STEP_RATIO; one stride-0 batched torch.matmul over the 600 steps
+    for each case but weight."""
     gen = torch.Generator(device="cuda").manual_seed(21)
-    lhs, rhs, w = mf.make_inputs(gen, device="cuda")
-    worst = 0.0
+    lhs, rhs, w = mf.make_inputs(gen)
+    worst, max_err, chain = 0.0, 0.0, None
     for name, rows, variant in mf.CASES:
         got = mf.floor_bench(lhs, rhs, w, variant, rows)
+        again = mf.floor_bench(lhs, rhs, w, variant, rows)
         ref = mf.floor_reference(lhs, rhs, w, variant)
         torch.cuda.synchronize()
-        rel = _row_rel(got, ref)
+        rel, same = _row_rel(got, ref), torch.equal(got, again)
         worst = max(worst, rel)
-        sm.check(rel <= FLOOR_ROW_REL,
+        max_err = max(max_err, (got - ref).abs().max().item())
+        if name == "rows64":
+            chain = got
+        sm.check(rel <= FLOOR_ROW_REL and same,
                  f"matmul floor {name}: worst row relative L2 {rel:.2e} "
-                 f"(bound {FLOOR_ROW_REL:g})")
+                 f"(bound {FLOOR_ROW_REL:g}), bit-equal on repeat {same}")
+    faults = {}
+    for name, bad in _floor_faults(mf, lhs, rhs):
+        faults[name] = _row_rel(chain, bad)
+        sm.check(faults[name] > FLOOR_ROW_REL,
+                 f"matmul floor planted fault ({name}) reads "
+                 f"{faults[name]:.2e} through the plain version, above the "
+                 f"bound")
+    kernels = _one_kernel(sm, "matmul floor rows64",
+                          lambda: mf.floor_bench(lhs, rhs, w, "chain", 64),
+                          "floor_kernel", lambda: mf.floor_bench.launches)
     mf.floor_bench.launches = 0
     cases = {}
     visits = mf.NSTEP * (mf.QB // 64) * mf.SLOTS
     for name, rows, variant in mf.CASES:
         ms = _graph_ms(lambda: mf.floor_bench(lhs, rhs, w, variant, rows),
                        [()])
+        lib = _floor_library(mf, lhs, rhs, variant)
+        tflops = mf.FLOPS / ms / 1e9
         cases[name] = {"ms": ms, "ns_per_visit": ms * 1e6 / visits,
-                       "tflops": mf.FLOPS / ms / 1e9}
+                       "tflops": tflops,
+                       "library_ms": None if lib is None
+                       else _graph_ms(lib, [()])}
+        sm.check(tflops <= BF16_FLOPS / 1e12,
+                 f"matmul floor {name}: {tflops:.0f} TFLOP/s, not above the "
+                 f"card's {BF16_FLOPS / 1e12:.0f}")
+    steps = {}
+    for n in (mf.NSTEP, mf.NSTEP // 2, mf.NSTEP // 2, mf.NSTEP):
+        steps.setdefault(n, []).append(_graph_ms(
+            lambda: mf.floor_bench(lhs, rhs, w, "chain", 64, nstep=n), [()]))
     launches = mf.floor_bench.launches
+    ratio = sum(steps[mf.NSTEP]) / sum(steps[mf.NSTEP // 2])
+    sm.check(FLOOR_STEP_RATIO[0] <= ratio <= FLOOR_STEP_RATIO[1],
+             f"matmul floor rows64: {mf.NSTEP} steps take {ratio:.3f}x the "
+             f"time of {mf.NSTEP // 2} (in {FLOOR_STEP_RATIO}: every step "
+             f"computed)")
     plain_ms = _timeit(lambda: mf.floor_reference(lhs, rhs, w, "chain",
                                                   mf.NSTEP), n=2)
     nbytes = lhs.numel() // 4 * 2 + rhs.numel() * 2 + mf.QB * 128 * 4
     bound_ms, bound_by = _bound(nbytes, mf.FLOPS, BF16_FLOPS)
     sm.log("time matmul floor (CUDA graph replays): " + "; ".join(
         f"{n} {v['ms']:.4f} ms, {v['ns_per_visit']:.2f} ns/64q-slot, "
-        f"{v['tflops']:.0f} TFLOP/s" for n, v in cases.items())
-        + f"; rows64 bound {bound_ms:.4f} ms by {bound_by}; plain "
-        f"{plain_ms:.3f} ms; {launches} launches")
-    return {"launches": launches, "max_abs_err": worst,
+        f"{v['tflops']:.0f} TFLOP/s, stride-0 batched torch.matmul "
+        + ("none" if v["library_ms"] is None else f"{v['library_ms']:.4f} ms")
+        for n, v in cases.items())
+        + f"; rows64 at {mf.NSTEP // 2} / {mf.NSTEP} steps "
+        + ", ".join(f"{n}: " + "/".join(f"{t:.4f}" for t in ts)
+                    for n, ts in steps.items())
+        + f" ms (ratio {ratio:.3f}); rows64 bound {bound_ms:.4f} ms by "
+        f"{bound_by}; plain {plain_ms:.3f} ms; {launches} launches")
+    return {"launches": launches, "max_abs_err": max_err, "row_rel": worst,
             "shape": "rows64 chain, 600 steps of 1024 x 128 x (4 x 128)",
             "ms": cases["rows64"]["ms"], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "cases": cases}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cases["rows64"]["library_ms"],
+            "library": "one stride-0 batched torch.matmul over the 600 "
+                       "steps, lhs[:, :128].repeat(1, 4) @ rhs, bf16 out",
+            "faults": faults, "kernels_per_call": kernels,
+            "step_ratio": ratio, "step_ms": steps, "cases": cases}
 
 
 # --------------------------------------------------------------- training
@@ -2528,21 +2713,11 @@ def _kernels_per_call(sm, calls):
     torch.profiler's CUDA activity: one a streaming int4_matmul, two a
     fused MLP (gate and up with the SwiGLU, then down). None where the
     profiler recorded no device activity."""
-    from torch.profiler import ProfilerActivity, profile
-
     counts = {}
     for what, (_, products, call, _) in calls.items():
         if not what.endswith(f"M={SERVE_BATCH}"):
             continue
-        call()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "memcpy" not in e.name.lower()
-                 and "memset" not in e.name.lower()]
+        names = _device_kernels(call)
         counts[what] = len(names) if names else None
         if names:
             sm.check(len(names) == products and all(
@@ -3475,6 +3650,13 @@ def main():
     mlp_err, mlp_times = phase_int4_mlp(sm, quant, i4mlp)
     # phase 24: the int4 streaming route replayed from a CUDA graph
     i4_graph = phase_int4_graph(sm, quant, i4, i4mlp)
+    # phase 18: the int4 unpack microbenchmark, and phases 19-21: the MSDA
+    # microbenchmarks (here, where torch.profiler still records the card:
+    # later in the run it recorded no device activity)
+    unpack = phase_int4_unpack(sm, iu)
+    dma = phase_msda_dma(sm, md)
+    micro = phase_msda_micro(sm, mm)
+    floor = phase_matmul_floor(sm, mf)
     phase_tiny_quant(sm, FO1Model, FO1Config, FallbackTokenizer, OD_template,
                      quant, i4, i4mlp)
     quant_runs = {}
@@ -3501,14 +3683,6 @@ def main():
         sm, FO1Model, FO1Config, FallbackTokenizer, OD_template, train, fa,
         msda)
     sm.log("FO1 training per step: " + json.dumps(train_runs))
-
-    # phase 18: the int4 unpack microbenchmark
-    unpack = phase_int4_unpack(sm, iu, i4.unpack_int4_halves)
-
-    # phases 19-21: the MSDA microbenchmarks
-    dma = phase_msda_dma(sm, md)
-    micro = phase_msda_micro(sm, mm)
-    floor = phase_matmul_floor(sm, mf)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "vlm_fo1_tpu"))
@@ -3605,8 +3779,9 @@ def main():
     }, {
         "name": "int4_unpack_bench", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/int4_unpack_bench.cu",
-        "replaces": "tools/xp_int4_unpack.py:84", "library_ms": None,
-        "shape": "gate and up packed [1024, 11008] int8, strategy magic",
+        "replaces": "tools/xp_int4_unpack.py:84",
+        "shape": "x [8, 2048] bf16, gate and up packed [1024, 11008] int8, "
+                 "tiles of 256, strategy magic",
         **unpack,
     }, {
         "name": "msda_dma_bench", "route": "cuda",

@@ -21,21 +21,31 @@ bf16) on the CPU, inputs from numpy seeds:
   cluster), and a grid that fills the SMs;
 - the plain versions of the unpack microbenchmark's strategies vs
   `tools/xp_int4_unpack.py`'s `unpack_divide` / `unpack_shift` /
-  `unpack_float` (imported by path), exactly.
+  `unpack_float` (imported by path), exactly; and its fused gate/up
+  product (`unpack_bench_reference`) vs the file's own kernel bodies
+  (`kernel` per mode, `nounpack_kernel` for "none") run as an interpreted
+  `pallas_call` over the file's grid at a cut geometry (the file's module
+  constants patched), worst row relative L2 <= 1e-5; "cvt" and "magic"
+  equal to "divide" exactly.
 
 The `cuda`-marked tests hold each CUDA kernel against its plain version on
 the card (skipped without one): odd shapes, both dtypes, the streaming
 (M <= 8) and tiled paths, tile edges with the route each call takes, and
-bit-equal repeats; and the unpack microbenchmark's strategies.
+bit-equal repeats; and the unpack microbenchmark's product for every
+strategy (row bound, zero columns, bit-equal repeats, its copy ring).
 """
 
+import functools
 import importlib.util
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from chip_smoke import INT4_CASES, INT4_MLP_CASES, _at_offset, _seg_rel
 from torch_parity import one_torch_thread  # noqa: F401
@@ -243,22 +253,73 @@ def test_unpack_strategies_match_tpu_file(strategy):
                                       np.asarray(w, np.float32))
 
 
-def test_unpack_bench_plain_checksums():
-    """The CPU path of the microbenchmark: the four signed decodes give one
-    checksum, the TPU file's unsigned float decode another, the raw words
-    a third; the decoded values are the halves."""
-    rng = np.random.default_rng(7)
-    g, u = (torch.from_numpy(rng.integers(-128, 128, (8, 64), np.int8))
+# the TPU file's kernels at a cut geometry: D, I, TI, M patched in its module
+UNPACK_CUT = {"D": 256, "I": 512, "TI": 128, "M": 8}
+# worst relative L2 error of one output row against the TPU file's kernel:
+# the same exact bf16 products, f32 sums in another order
+UNPACK_ROW_REL = 1e-5
+
+
+def _unpack_inputs(seed, d, i, m=8):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    g, u = (rng.integers(-128, 127, (d // 2, i), dtype=np.int8)
             for _ in range(2))
-    sums = {s: int4_unpack.unpack_bench(g, u, s).item()
+    x16 = torch.from_numpy(x).to(torch.bfloat16)
+    return x16, torch.from_numpy(g), torch.from_numpy(u)
+
+
+def _row_rel(got, want):
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+@pytest.mark.parametrize("mode", ["none", "divide", "shift", "float"])
+def test_unpack_bench_plain_matches_tpu_kernel(mode, monkeypatch):
+    xp = _tpu_unpack_file()
+    for name, value in UNPACK_CUT.items():
+        monkeypatch.setattr(xp, name, value)
+    d, i, ti, m = (UNPACK_CUT[k] for k in ("D", "I", "TI", "M"))
+    x, g, u = _unpack_inputs(3, d, i, m)
+    body = (xp.nounpack_kernel if mode == "none"
+            else functools.partial(xp.kernel, mode=mode))
+    vmem = pltpu.VMEM
+    want = pl.pallas_call(
+        body, grid=(i // ti,),
+        in_specs=[pl.BlockSpec((m, d), lambda t: (0, 0), memory_space=vmem),
+                  pl.BlockSpec((d // 2, ti), lambda t: (0, t),
+                               memory_space=vmem),
+                  pl.BlockSpec((d // 2, ti), lambda t: (0, t),
+                               memory_space=vmem)],
+        out_specs=pl.BlockSpec((m, d), lambda t: (0, 0), memory_space=vmem),
+        out_shape=jax.ShapeDtypeStruct((m, d), jnp.float32),
+        interpret=True)(jnp.asarray(x.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(g.numpy()), jnp.asarray(u.numpy()))
+    want = torch.from_numpy(np.array(want))
+    got = int4_unpack.unpack_bench(x, g, u, mode, ti=ti)
+    assert got.shape == (m, d) and not got[:, ti:].any()
+    assert _row_rel(got, want) <= UNPACK_ROW_REL
+
+
+def test_unpack_bench_signed_decodes_agree_without_a_launch():
+    """cvt and magic decode to the same values as divide (and shift), so
+    their products are equal bit for bit; float's unsigned low nibble and
+    none's raw bytes give other products. CPU tensors take the plain
+    version and launch nothing."""
+    x, g, u = _unpack_inputs(5, 256, 384)
+    before = (int4_unpack.unpack_bench.launches,
+              int4_unpack.copy_ring.launches)
+    outs = {s: int4_unpack.unpack_bench(x, g, u, s, ti=128)
             for s in int4_unpack.STRATEGIES}
-    assert sums["divide"] == sums["shift"] == sums["cvt"] == sums["magic"]
-    assert len({sums["none"], sums["float"], sums["magic"]}) == 3
-    lo, hi = int4_unpack.unpack_bench(g, u, "magic", decoded=True)
-    want = [torch.cat(p) for p in zip(unpack_int4_halves(g.reshape(-1)),
-                                      unpack_int4_halves(u.reshape(-1)))]
-    assert torch.equal(lo.float(), want[0].float())
-    assert torch.equal(hi.float(), want[1].float())
+    for s in ("shift", "cvt", "magic"):
+        assert torch.equal(outs[s], outs["divide"]), s
+    for s in ("none", "float"):
+        assert _row_rel(outs[s], outs["divide"]) > 1e-2, s
+    assert before == (int4_unpack.unpack_bench.launches,
+                      int4_unpack.copy_ring.launches)
+    with pytest.raises(ValueError):
+        int4_unpack.copy_ring(x, g, u, ti=128)
+    with pytest.raises(ValueError):
+        int4_unpack.unpack_bench(x, g, u, "other", ti=128)
 
 
 # ------------------------------------------------------------ on the card
@@ -379,19 +440,25 @@ def test_int4_mlp_tile_edges_on_card(m, d, i, offset, route, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("strategy", int4_unpack.STRATEGIES)
-def test_unpack_bench_matches_plain_on_card(strategy, monkeypatch):
+@pytest.mark.parametrize("d,i,ti", [(256, 512, 256), (2048, 2816, 256)])
+def test_unpack_bench_matches_plain_on_card(strategy, d, i, ti, monkeypatch):
+    """The fused product on the card: worst row relative L2 <= 1e-4
+    (chip_smoke.py's bound), zero columns past ti, bit-equal on repeat;
+    the copy ring alone reads zeros, each launch counted."""
     _card(monkeypatch)
-    rng = np.random.default_rng(11)
-    g, u = (torch.from_numpy(rng.integers(-128, 128, (64, 96), np.int8))
-            .cuda() for _ in range(2))
-    got = int4_unpack.unpack_bench(g, u, strategy)
-    assert got.item() == int4_unpack.unpack_bench_reference(
-        g, u, strategy).item()
-    if strategy != "none":
-        got = int4_unpack.unpack_bench(g, u, strategy, decoded=True)
-        want = int4_unpack.unpack_bench_reference(g, u, strategy,
-                                                  decoded=True)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    x, g, u = (t.cuda() for t in _unpack_inputs(11, d, i))
+    before = int4_unpack.unpack_bench.launches
+    got = int4_unpack.unpack_bench(x, g, u, strategy, ti=ti)
+    again = int4_unpack.unpack_bench(x, g, u, strategy, ti=ti)
+    torch.cuda.synchronize()
+    assert int4_unpack.unpack_bench.launches == before + 2
+    want = int4_unpack.unpack_bench_reference(x, g, u, strategy, ti=ti)
+    assert torch.equal(got, again)
+    assert not got[:, ti:].any()
+    assert _row_rel(got, want) <= 1e-4
+    ring = int4_unpack.copy_ring(x, g, u, ti=ti)
+    torch.cuda.synchronize()
+    assert not ring.any()
 
 
 @pytest.mark.cuda

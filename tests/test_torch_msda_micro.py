@@ -12,7 +12,8 @@ numpy-seeded inputs:
   rounding (atol = rtol = 1e-6: the same exact products, summed in slot
   order);
 - the chained products: equal to the TPU kernel's dots to f32 rounding
-  (rtol 1e-5, atol 1e-4 on sums of 128-512 products of unit normals).
+  (rtol 1e-5, atol 1e-4 on sums of 128-512 products of unit normals), and
+  the plain version's tile the same after 1 and 3 steps.
 The CUDA kernels themselves are compared with the plain versions by the
 `cuda`-marked tests on a card."""
 
@@ -369,21 +370,30 @@ def test_floor_plain_matches_tpu_file(rows, variant):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
 
 
+@pytest.mark.parametrize("variant", matmul_floor.VARIANTS)
+def test_floor_reference_steps_give_the_same_tile(variant):
+    gen = torch.Generator().manual_seed(6)
+    lhs, rhs, w = matmul_floor.make_inputs(gen, device="cpu", qb=64)
+    one = matmul_floor.floor_reference(lhs, rhs, w, variant, nstep=1)
+    three = matmul_floor.floor_reference(lhs, rhs, w, variant, nstep=3)
+    assert torch.equal(one, three) and one.abs().max() > 1
+
+
 def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     gen = torch.Generator().manual_seed(5)
     counts = (matmul_floor.floor_bench.launches,
               msda_micro.gather_bench.launches, msda_dma.dma_bench.launches)
-    lhs, rhs, w = matmul_floor.make_inputs(gen, qb=64)
+    lhs, rhs, w = matmul_floor.make_inputs(gen, device="cpu", qb=64)
     two = matmul_floor.floor_bench(lhs, rhs, w, "same")
     one = matmul_floor.floor_reference(lhs, rhs, w, "chain")
     assert torch.allclose(two, 4 * (lhs.float()[:, :128]
                                     @ rhs.float()[:128]), rtol=1e-5,
                           atol=1e-4)
     assert one.shape == (64, 128)
-    inputs = msda_micro.make_inputs(256, True, gen, heads=1, lqp=256,
-                                    rband=256)
+    inputs = msda_micro.make_inputs(256, True, gen, device="cpu", heads=1,
+                                    lqp=256, rband=256)
     msda_micro.gather_bench(*inputs, 256, True)
-    dma = msda_dma.make_inputs(gen, heads=1, nqb=2, rband=16)
+    dma = msda_dma.make_inputs(gen, device="cpu", heads=1, nqb=2, rband=16)
     out, _ = msda_dma.dma_bench(dma, msda_dma.VAL4, 32, 1)
     assert out.shape == (1, 2 * msda_dma.QB, 32) and not out.any()
     assert counts == (matmul_floor.floor_bench.launches,
@@ -435,12 +445,19 @@ def test_micro_kernel_matches_plain_on_card(qb, transposed):
 @pytest.mark.parametrize("name,rows,variant", matmul_floor.CASES)
 def test_floor_kernel_matches_plain_on_card(name, rows, variant,
                                             monkeypatch):
-    """Worst row relative L2 <= 1e-4 (chip_smoke.py's FLOOR_ROW_REL)."""
+    """Worst row relative L2 <= 1e-4 (chip_smoke.py's FLOOR_ROW_REL), the
+    same tile bit for bit after 1, 3 and 600 steps and on repeat."""
     _card()
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    lhs, rhs, w = matmul_floor.make_inputs(gen, device="cuda")
+    lhs, rhs, w = matmul_floor.make_inputs(gen)
+    before = matmul_floor.floor_bench.launches
     got = matmul_floor.floor_bench(lhs, rhs, w, variant, rows)
+    steps = [matmul_floor.floor_bench(lhs, rhs, w, variant, rows, nstep=n)
+             for n in (1, 3, matmul_floor.NSTEP)]
+    torch.cuda.synchronize()
+    assert matmul_floor.floor_bench.launches == before + 4
+    assert all(torch.equal(got, s) for s in steps), name
     ref = matmul_floor.floor_reference(lhs, rhs, w, variant)
     rel = ((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max().item()
     assert rel <= 1e-4, name

@@ -1,5 +1,6 @@
 // Shared machinery of the int4 weight kernels (int4_matmul.cu, int4_mlp.cu,
-// int4_unpack_bench.cu) for Hopper (sm_90a): products of an activation
+// int4_unpack_bench.cu; matmul_floor_bench.cu takes its TMA, mbarrier and
+// descriptor helpers) for Hopper (sm_90a): products of an activation
 // matrix with int4 weights stored two nibbles per byte, summed in f32,
 // scaled after the sum.
 //

@@ -8,9 +8,11 @@ row tiles, by one of four variants of `lhs` [QB, 512] bf16, `rhs`
 128-row slot block of rhs over the 4 slots; "weight" multiplies each slot's
 product by w's matching 128 columns first; "same" uses rhs's first block
 for every slot; "k512" is one lhs @ rhs. `floor_bench` launches the
-hand-written CUDA kernel (`csrc/matmul_floor_bench.cu`, `mma.sync` bf16
+hand-written CUDA kernel (`csrc/matmul_floor_bench.cu`, `wgmma` bf16
 products with f32 sums) for CUDA tensors and takes the plain version
-`floor_reference` only for CPU tensors. Every step gives the same tile.
+`floor_reference` only for CPU tensors. Every step gives the same tile;
+the step count is an argument (the TPU file's 600 by default), and the
+kernel computes every step.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ FLOPS = 2 * NSTEP * QB * SLOTS * 128 * 128
 _lib = None
 
 
-def make_inputs(gen=None, device="cpu", qb=QB):
+def make_inputs(gen=None, device="cuda", qb=QB):
     """Seeded lhs [qb, 512] bf16, rhs [512, 128] bf16, w [qb, 512] f32, as
     the TPU file draws them."""
     lhs = torch.randn(qb, 512, generator=gen, device=device)
@@ -72,17 +74,19 @@ def _load():
         lib = cuda_lib.load("matmul_floor_bench")
         fn = lib.fo1_matmul_floor_bench
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, ci, ci, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
         fn.restype = ci
         _lib = lib
     return _lib
 
 
-def floor_bench(lhs, rhs, w, variant, rows=64):
-    """One call: NSTEP steps of the variant in row tiles of `rows` ->
-    out [QB, 128] float32. CPU tensors take `floor_reference`."""
-    if variant not in VARIANTS or rows not in ROWS:
-        raise ValueError(f"floor_bench: variant {variant!r}, rows {rows}")
+def floor_bench(lhs, rhs, w, variant, rows=64, nstep=NSTEP):
+    """One call: nstep steps of the variant in row tiles of `rows` ->
+    out [QB, 128] float32. CPU tensors take `floor_reference` of one step
+    (every step gives the same tile)."""
+    if variant not in VARIANTS or rows not in ROWS or nstep < 1:
+        raise ValueError(f"floor_bench: variant {variant!r}, rows {rows}, "
+                         f"nstep {nstep}")
     if lhs.device.type == "cpu":
         return floor_reference(lhs, rhs, w, variant)
     dev = lhs.device
@@ -101,7 +105,7 @@ def floor_bench(lhs, rhs, w, variant, rows=64):
     with torch.cuda.device(dev):
         err = _load().fo1_matmul_floor_bench(
             lhs.data_ptr(), rhs.data_ptr(), w.data_ptr(), out.data_ptr(),
-            rows, VARIANTS.index(variant),
+            rows, VARIANTS.index(variant), nstep,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul floor kernel launch failed: CUDA error "

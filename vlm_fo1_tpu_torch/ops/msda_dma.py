@@ -45,7 +45,7 @@ CASES = (
 _lib = None
 
 
-def make_inputs(gen=None, device="cpu", heads=HEADS, nqb=NQB, rband=RBAND):
+def make_inputs(gen=None, device="cuda", heads=HEADS, nqb=NQB, rband=RBAND):
     """Seeded arrays of the TPU file's shapes (it streamed zeros; random
     words make the checksum see every read): val4 [heads, rband, 128] bf16,
     dvm [heads, lq, 4] and w4 [heads, lq, 16] (float32 bits), three code

@@ -34,7 +34,7 @@ CASES = (("base", 256, False), ("qb512", 512, False),
 _lib = None
 
 
-def make_inputs(qb, slot_major, gen=None, device="cpu", heads=HEADS,
+def make_inputs(qb, slot_major, gen=None, device="cuda", heads=HEADS,
                 lqp=LQP, rband=RBAND):
     """Seeded inputs of the TPU file's kinds: val4 [heads, rband, 128] bf16;
     code [heads, ncode, 128] int32 in [0, rband - 128); delta [heads, lqp,
