@@ -65,6 +65,7 @@ from vlm_fo1_tpu_torch.models.vit import (
     captures_to_feature_map,
 )
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
+from vlm_fo1_tpu_torch.runtime import trace
 from vlm_fo1_tpu_torch.runtime.device import resolve_device, stage_timer
 from vlm_fo1_tpu_torch.runtime.generate import (
     GenerationConfig,
@@ -153,6 +154,8 @@ class FO1Model(nn.Module):
         self.tokenizer = tokenizer
         self.device = device
         self.dtype = dtype
+        # CUDA events time the device-side spans on the card
+        self._card = device.type == "cuda"
         # the attention used by the ViT full blocks and the trunk prefill;
         # setting ops.flash_attention.flash_attention_reference here runs
         # the plain version instead (for comparisons on the card)
@@ -254,17 +257,70 @@ class FO1Model(nn.Module):
         image's smart resize to a coarser multiple of 28 px, so mixed sizes
         share grids."""
         cfg = self.cfg
-        prompt, tokens, media_urls, bbox_list = build_chat_tokens(
-            self.tokenizer, messages)
-        if not media_urls:
-            raise ValueError("FO1 requires at least one image/video message")
+        rid = trace.request_id()
+        with trace.span("prepare", reqs=(rid,)):
+            with trace.span("prepare.tokens"):
+                prompt, tokens, media_urls, bbox_list = build_chat_tokens(
+                    self.tokenizer, messages)
+            if not media_urls:
+                raise ValueError(
+                    "FO1 requires at least one image/video message")
+            with trace.span("prepare.pixels"):
+                media, boxes, pvs, grids, slot_ids, raw, aux = \
+                    self._prepare_pixels(media_urls, bbox_list, max_pixels,
+                                         device_preproc, geometry_factor)
+            first_is_image = media[0][0] == "image"
+            with trace.span("prepare.plan"):
+                plans = [build_vit_plan(g, cfg.vision) for g in grids]
+                aux_boxes = np.zeros((0, 4), np.float32)
+                vt_boxes = aux_boxes
+                if first_is_image:
+                    img, grid, size = media[0][1], grids[0], cfg.aux_image_size
+                    w, h = img.size
+                    aux_boxes = np.asarray(
+                        pp.adjust_bbox(boxes, h, w, size, size) if boxes
+                        else np.zeros((0, 4)), np.float32).reshape(-1, 4)
+                    sx = grid[2] * cfg.vision.patch_size / size
+                    sy = grid[1] * cfg.vision.patch_size / size
+                    vt_boxes = aux_boxes * np.array([sx, sy, sx, sy],
+                                                    np.float32)
+                else:
+                    boxes = []
+            with trace.span("prepare.rope"):
+                info = expand_multimodal_tokens(
+                    tokens, [p.num_units for p in plans], slot_ids)
+                pos_ids, deltas = pp.get_rope_index(
+                    info.input_ids[None], grids,
+                    spatial_merge_size=cfg.vision.spatial_merge_size,
+                    image_token_id=cfg.image_token_id,
+                    video_token_id=cfg.video_token_id,
+                    vision_start_token_id=cfg.vision_start_token_id,
+                    tokens_per_second=cfg.vision.tokens_per_second,
+                    second_per_grid_ts=[1.0] * sum(k == "video"
+                                                   for k, _ in media))
+        return {
+            "prompt": prompt, "media": media, "bbox_list": boxes,
+            "pixel_values": pvs[0], "raw_image": raw, "grid": grids[0],
+            "plan": plans[0], "pixel_values_list": pvs, "grids": grids,
+            "plans": plans, "first_is_image": first_is_image,
+            "aux": aux, "aux_boxes": aux_boxes, "vt_boxes": vt_boxes,
+            "splice": info, "position_ids": pos_ids, "rope_deltas": deltas,
+            "request_id": rid,
+        }
+
+    def _prepare_pixels(self, media_urls, bbox_list, max_pixels,
+                        device_preproc, geometry_factor):
+        """`prepare`'s pixel work: load every image and video frame, the
+        shortest-edge resize of the images with the first one's boxes,
+        patchify (or the raw smart-resized image in device_preproc mode)
+        and the aux squash of a first image. Returns (media, boxes, pvs,
+        grids, slot_ids, raw, aux)."""
+        cfg = self.cfg
         media = [("video", [pp.load_image(f) for f in u["video"]])
                  if isinstance(u, dict) and "video" in u
                  else ("image", pp.load_image(u)) for u in media_urls]
-        first_image_idx = next((i for i, (k, _) in enumerate(media)
-                                if k == "image"), None)
         boxes = []
-        if first_image_idx is not None:
+        if any(k == "image" for k, _ in media):
             imgs = [m for k, m in media if k == "image"]
             per_image = [list(bbox_list or [])] + [[] for _ in imgs[1:]]
             imgs, bbox_lists = pp.resize_shortest_edge_images_and_bboxes(
@@ -278,7 +334,7 @@ class FO1Model(nn.Module):
                   min_pixels=cfg.min_pixels)
         raw_mode = (device_preproc and len(media) == 1
                     and media[0][0] == "image")
-        pvs, grids, plans, slot_ids = [], [], [], []
+        pvs, grids, slot_ids = [], [], []
         raw = None
         for kind, m in media:
             if kind == "video":
@@ -296,42 +352,10 @@ class FO1Model(nn.Module):
                 slot_ids.append(cfg.image_token_id)
             pvs.append(pv)
             grids.append(grid)
-            plans.append(build_vit_plan(grid, cfg.vision))
-
         aux = None
-        aux_boxes = np.zeros((0, 4), np.float32)
-        vt_boxes = aux_boxes
-        if first_image_idx == 0:
-            img, grid, size = media[0][1], grids[0], cfg.aux_image_size
-            if not raw_mode:
-                aux = pp.aux_image_u8(img, size)
-            w, h = img.size
-            aux_boxes = np.asarray(
-                pp.adjust_bbox(boxes, h, w, size, size) if boxes
-                else np.zeros((0, 4)), np.float32).reshape(-1, 4)
-            sx = grid[2] * cfg.vision.patch_size / size
-            sy = grid[1] * cfg.vision.patch_size / size
-            vt_boxes = aux_boxes * np.array([sx, sy, sx, sy], np.float32)
-        else:
-            boxes = []
-        info = expand_multimodal_tokens(tokens, [p.num_units for p in plans],
-                                        slot_ids)
-        pos_ids, deltas = pp.get_rope_index(
-            info.input_ids[None], grids,
-            spatial_merge_size=cfg.vision.spatial_merge_size,
-            image_token_id=cfg.image_token_id,
-            video_token_id=cfg.video_token_id,
-            vision_start_token_id=cfg.vision_start_token_id,
-            tokens_per_second=cfg.vision.tokens_per_second,
-            second_per_grid_ts=[1.0] * sum(k == "video" for k, _ in media))
-        return {
-            "prompt": prompt, "media": media, "bbox_list": boxes,
-            "pixel_values": pvs[0], "raw_image": raw, "grid": grids[0],
-            "plan": plans[0], "pixel_values_list": pvs, "grids": grids,
-            "plans": plans, "first_is_image": first_image_idx == 0,
-            "aux": aux, "aux_boxes": aux_boxes, "vt_boxes": vt_boxes,
-            "splice": info, "position_ids": pos_ids, "rope_deltas": deltas,
-        }
+        if media[0][0] == "image" and not raw_mode:
+            aux = pp.aux_image_u8(media[0][1], cfg.aux_image_size)
+        return media, boxes, pvs, grids, slot_ids, raw, aux
 
     # ---------------------------------------------------- device inputs
 
@@ -439,33 +463,36 @@ class FO1Model(nn.Module):
         """Stack and upload a same-geometry batch's vision inputs: patch
         rows and aux images, or the raw images with the cached window-pad
         gather, and the boxes padded with dummies to one bucket."""
-        plan, grid = preps[0]["plan"], preps[0]["grid"]
-        nb = _round_boxes(max(_region_slots(p) for p in preps))
+        with trace.span("upload"):
+            plan, grid = preps[0]["plan"], preps[0]["grid"]
+            nb = _round_boxes(max(_region_slots(p) for p in preps))
 
-        def padded(boxes):
-            return np.concatenate(
-                [boxes, np.tile(DUMMY_BOX, (nb - len(boxes), 1))])[:nb]
+            def padded(boxes):
+                return np.concatenate(
+                    [boxes, np.tile(DUMMY_BOX, (nb - len(boxes), 1))])[:nb]
 
-        gather = None
-        if all(p.get("raw_image") is not None for p in preps):
-            patches = self._upload(np.stack([p["raw_image"] for p in preps]))
-            aux = None
-            gather = self._const(
-                ("gather", tuple(int(g) for g in grid)),
-                lambda: (plan.gather_idx, torch.long))
-        else:
-            patches = self._upload(np.stack(
-                [pad_pixel_values(p["pixel_values"], plan) for p in preps]))
-            aux = self._upload(np.stack([p["aux"] for p in preps]))
-        return {
-            "patches": patches, "aux": aux, "gather_idx": gather,
-            "aux_boxes": self._upload(np.stack(
-                [padded(p["aux_boxes"]) for p in preps])),
-            "vt_boxes": self._upload(np.stack(
-                [padded(p["vt_boxes"]) for p in preps])),
-            "plan_arrays": self._device_plan(grid, plan),
-            "num_windows": plan.num_windows, "grid": grid, "nb": nb,
-        }
+            gather = None
+            if all(p.get("raw_image") is not None for p in preps):
+                patches = self._upload(
+                    np.stack([p["raw_image"] for p in preps]))
+                aux = None
+                gather = self._const(
+                    ("gather", tuple(int(g) for g in grid)),
+                    lambda: (plan.gather_idx, torch.long))
+            else:
+                patches = self._upload(np.stack(
+                    [pad_pixel_values(p["pixel_values"], plan)
+                     for p in preps]))
+                aux = self._upload(np.stack([p["aux"] for p in preps]))
+            return {
+                "patches": patches, "aux": aux, "gather_idx": gather,
+                "aux_boxes": self._upload(np.stack(
+                    [padded(p["aux_boxes"]) for p in preps])),
+                "vt_boxes": self._upload(np.stack(
+                    [padded(p["vt_boxes"]) for p in preps])),
+                "plan_arrays": self._device_plan(grid, plan),
+                "num_windows": plan.num_windows, "grid": grid, "nb": nb,
+            }
 
     # ----------------------------------------------------------- device
 
@@ -476,26 +503,31 @@ class FO1Model(nn.Module):
         (vision_tokens [B, U, D], region_tokens [B, nb, D]) in the model
         dtype; padded boxes give padded rows."""
         cfg = self.cfg
-        if enc["gather_idx"] is not None:
-            patches, aux = self._device_preproc(enc["patches"],
-                                                enc["gather_idx"])
-        else:
-            patches, aux = self._normalize(enc["patches"], enc["aux"])
-        rot_cos, rot_sin, valid, inv_unit, inv_token = enc["plan_arrays"]
-        tokens, captures = self.vision_tower(
-            patches, rot_cos, rot_sin, valid,
-            num_windows=enc["num_windows"], inv_unit_idx=inv_unit,
-            attention=self.attention)
-        vision_tokens = self.mm_projector(tokens)
-        vt_maps = captures_to_feature_map(captures, inv_token, enc["grid"],
-                                          cfg.vision.spatial_merge_size)
-        stage_maps = self.vision_tower_aux(aux)
-        region = torch.stack([
-            self.object_vp_extractor([m[i] for m in stage_maps],
-                                     enc["aux_boxes"][i], vt_maps[i],
-                                     enc["vt_boxes"][i])
-            for i in range(patches.shape[0])])
-        region_tokens = self.mm_projector_aux(region.to(vision_tokens.dtype))
+        with trace.span("vit", device=self._card):
+            if enc["gather_idx"] is not None:
+                patches, aux = self._device_preproc(enc["patches"],
+                                                    enc["gather_idx"])
+            else:
+                patches, aux = self._normalize(enc["patches"], enc["aux"])
+            rot_cos, rot_sin, valid, inv_unit, inv_token = enc["plan_arrays"]
+            tokens, captures = self.vision_tower(
+                patches, rot_cos, rot_sin, valid,
+                num_windows=enc["num_windows"], inv_unit_idx=inv_unit,
+                attention=self.attention)
+            vision_tokens = self.mm_projector(tokens)
+        with trace.span("davit", device=self._card):
+            stage_maps = self.vision_tower_aux(aux)
+        with trace.span("region", device=self._card):
+            vt_maps = captures_to_feature_map(
+                captures, inv_token, enc["grid"],
+                cfg.vision.spatial_merge_size)
+            region = torch.stack([
+                self.object_vp_extractor([m[i] for m in stage_maps],
+                                         enc["aux_boxes"][i], vt_maps[i],
+                                         enc["vt_boxes"][i])
+                for i in range(patches.shape[0])])
+            region_tokens = self.mm_projector_aux(
+                region.to(vision_tokens.dtype))
         return vision_tokens, region_tokens
 
     @torch.inference_mode()
@@ -504,12 +536,15 @@ class FO1Model(nn.Module):
         multi-slot prompt: the ViT and `mm_projector` only (the JAX
         `_encode_image_only`)."""
         rot_cos, rot_sin, valid, inv_unit, _ = self._device_plan(grid, plan)
-        patches, _ = self._normalize(
-            self._upload(pad_pixel_values(pixel_values, plan)[None]), None)
-        tokens, _ = self.vision_tower(
-            patches, rot_cos, rot_sin, valid, num_windows=plan.num_windows,
-            inv_unit_idx=inv_unit, attention=self.attention)
-        return self.mm_projector(tokens)[0]
+        with trace.span("vit", device=self._card):
+            patches, _ = self._normalize(
+                self._upload(pad_pixel_values(pixel_values, plan)[None]),
+                None)
+            tokens, _ = self.vision_tower(
+                patches, rot_cos, rot_sin, valid,
+                num_windows=plan.num_windows, inv_unit_idx=inv_unit,
+                attention=self.attention)
+            return self.mm_projector(tokens)[0]
 
     def _encode_one(self, prep: dict):
         """One prep alone -> (vision_tokens [U, D], region_padded [nb, D],
@@ -732,11 +767,12 @@ class FO1Model(nn.Module):
         return ids, img_pos, reg_pos, pos, seq_lens, deltas
 
     def _splice_stacked(self, enc, vision, region, preps, pad_len):
-        ids, img_pos, reg_pos, pos, seq_lens, deltas = self._token_arrays(
-            preps, enc["nb"], pad_len)
-        embeds = self._splice_rows(self._upload(ids), vision,
-                                   self._upload(img_pos), region,
-                                   self._upload(reg_pos))
+        with trace.span("splice"):
+            ids, img_pos, reg_pos, pos, seq_lens, deltas = \
+                self._token_arrays(preps, enc["nb"], pad_len)
+            embeds = self._splice_rows(self._upload(ids), vision,
+                                       self._upload(img_pos), region,
+                                       self._upload(reg_pos))
         return embeds, pos, seq_lens, deltas
 
     def _prefill_and_decode(self, embeds, pos, seq_lens, deltas, gen_cfg,
@@ -748,13 +784,15 @@ class FO1Model(nn.Module):
         prog = loop_program(self.text, self.cfg.text, gen_cfg, b, cache_len,
                             prompt_pad, self.cuda_graphs)
         seq_d = self._upload(seq_lens)
-        _, first_logits = prefill(
-            self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
-            cache_len, attention=self.attention, cache=prog.cache)
-        run = start_decode_loop(
-            self.text, self.cfg.text, gen_cfg, prog.cache, first_logits,
-            seq_d, self._upload(deltas), self._generator(seed),
-            prompt_pad, program=prog)
+        with trace.span("prefill", device=self._card):
+            _, first_logits = prefill(
+                self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
+                cache_len, attention=self.attention, cache=prog.cache)
+        with trace.span("decode.first", device=self._card):
+            run = start_decode_loop(
+                self.text, self.cfg.text, gen_cfg, prog.cache, first_logits,
+                seq_d, self._upload(deltas), self._generator(seed),
+                prompt_pad, program=prog)
         return run, first_logits
 
     @torch.inference_mode()
@@ -764,18 +802,21 @@ class FO1Model(nn.Module):
                       stop_sequences: tuple = ()) -> dict:
         """launch_batch of a same-geometry batch: one stacked encode, one
         batched splice, the prefill and the decode."""
-        enc = self._stack_batch_inputs(preps)
-        pad_len = pad_to_bucket(max(p["splice"].seq_len for p in preps), 128)
-        gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
-                                eos_token_id, stop_sequences)
-        vision, region = self._encode_batched(enc)
-        embeds, pos, seq_lens, deltas = self._splice_stacked(
-            enc, vision, region, preps, pad_len)
-        run, first_logits = self._prefill_and_decode(
-            embeds, pos, seq_lens, deltas, gen_cfg, seed, pad_len)
+        reqs = trace.request_ids(preps)
+        with trace.span("launch", reqs=reqs, device=self._card):
+            enc = self._stack_batch_inputs(preps)
+            pad_len = pad_to_bucket(max(p["splice"].seq_len for p in preps),
+                                    128)
+            gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
+                                    eos_token_id, stop_sequences)
+            vision, region = self._encode_batched(enc)
+            embeds, pos, seq_lens, deltas = self._splice_stacked(
+                enc, vision, region, preps, pad_len)
+            run, first_logits = self._prefill_and_decode(
+                embeds, pos, seq_lens, deltas, gen_cfg, seed, pad_len)
         return {"run": run, "first_logits": first_logits,
                 "seq_lens": seq_lens, "eos": gen_cfg.eos_token_id,
-                "stop_sequences": stop_sequences}
+                "stop_sequences": stop_sequences, "reqs": reqs}
 
     def _encode_many(self, preps: list[dict]):
         """Per-item (splice, nb, vision_tokens, region_padded): one stacked
@@ -820,42 +861,52 @@ class FO1Model(nn.Module):
             return self._launch_fused(
                 preps, max_new_tokens=max_new_tokens, temperature=temperature,
                 top_p=top_p, seed=seed, eos_token_id=eos_token_id)
-        items = self._encode_many(preps)
-        pad_len = pad_to_bucket(max(s.seq_len for s, *_ in items), 128)
+        reqs = trace.request_ids(preps)
+        with trace.span("launch", reqs=reqs, device=self._card):
+            items = self._encode_many(preps)
+            pad_len = pad_to_bucket(max(s.seq_len for s, *_ in items), 128)
+            with trace.span("splice"):
+                embeds = self._splice_items(preps, items, pad_len)
+            b = len(preps)
+            seq_lens = np.array([s.seq_len for s, *_ in items], np.int64)
+            pos = np.zeros((3, b, pad_len), np.int64)
+            for i, prep in enumerate(preps):
+                pos[:, i, :seq_lens[i]] = prep["position_ids"][:, 0]
+            deltas = np.array([int(p["rope_deltas"][0, 0]) for p in preps],
+                              np.int64)
+            gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
+                                    eos_token_id)
+            run, first_logits = self._prefill_and_decode(
+                embeds, pos, seq_lens, deltas, gen_cfg, seed, pad_len)
+        return {"run": run, "first_logits": first_logits,
+                "seq_lens": seq_lens, "eos": gen_cfg.eos_token_id,
+                "reqs": reqs}
+
+    def _splice_items(self, preps, items, pad_len):
+        """The per-item path's embeddings [B, pad_len, D]: one batched
+        scatter when the items' shapes agree, else one splice each."""
         uniform = len({(tuple(v.shape), tuple(r.shape),
                         len(s.image_positions))
                        for s, _, v, r in items}) == 1
-        if uniform:
-            ids, img_pos, reg_pos, _, _, _ = self._token_arrays(
-                preps, items[0][1], pad_len)
-            embeds = self._splice_rows(
-                self._upload(ids), torch.stack([v for *_, v, _ in items]),
-                self._upload(img_pos), torch.stack([r for *_, r in items]),
-                self._upload(reg_pos))
-        else:
-            embeds = torch.stack([self._splice_one(s, v, r, pad_len)
-                                  for s, _, v, r in items])
-        b = len(preps)
-        seq_lens = np.array([s.seq_len for s, *_ in items], np.int64)
-        pos = np.zeros((3, b, pad_len), np.int64)
-        for i, prep in enumerate(preps):
-            pos[:, i, :seq_lens[i]] = prep["position_ids"][:, 0]
-        deltas = np.array([int(p["rope_deltas"][0, 0]) for p in preps],
-                          np.int64)
-        gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
-                                eos_token_id)
-        run, first_logits = self._prefill_and_decode(
-            embeds, pos, seq_lens, deltas, gen_cfg, seed, pad_len)
-        return {"run": run, "first_logits": first_logits,
-                "seq_lens": seq_lens, "eos": gen_cfg.eos_token_id}
+        if not uniform:
+            return torch.stack([self._splice_one(s, v, r, pad_len)
+                                for s, _, v, r in items])
+        ids, img_pos, reg_pos, _, _, _ = self._token_arrays(
+            preps, items[0][1], pad_len)
+        return self._splice_rows(
+            self._upload(ids), torch.stack([v for *_, v, _ in items]),
+            self._upload(img_pos), torch.stack([r for *_, r in items]),
+            self._upload(reg_pos))
 
     @torch.inference_mode()
     def finish_batch(self, handle: dict) -> list[GenerationResult]:
         """Run a launch_batch handle's decode to its end and decode the
         results (each row's text is cut at EOS and `<|im_end|>`)."""
-        tokens, steps = handle["run"].finish()
-        tokens = tokens.cpu().numpy()
-        logits = handle["first_logits"].float().cpu().numpy()
+        with trace.span("finish", reqs=handle.get("reqs", ()),
+                        device=self._card):
+            tokens, steps = handle["run"].finish()
+            tokens = tokens.cpu().numpy()
+            logits = handle["first_logits"].float().cpu().numpy()
         seq_lens, eos = handle["seq_lens"], handle["eos"]
         stop_seqs = handle.get("stop_sequences", ())
         results = []
@@ -893,35 +944,38 @@ class FO1Model(nn.Module):
         if not self._fusable(preps):
             raise ValueError("session batches must share one geometry "
                              "(see FO1Model._fusable)")
-        b = len(preps)
-        enc = self._stack_batch_inputs(preps)
-        pad_len = pad_len or pad_to_bucket(
-            max(p["splice"].seq_len for p in preps), 128)
-        row_max = list(row_max or [max_new_tokens] * b)
-        if len(row_max) != b or max(row_max) > max_new_tokens:
-            raise ValueError(f"row_max {row_max} for {b} rows and "
-                             f"max_new_tokens {max_new_tokens}")
-        gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
-                                eos_token_id, stop_sequences)
-        tlen = max([len(s) for s in stop_sequences] or [1])
-        prog = acquire_program(
-            self.text, self.cfg.text, gen_cfg, mode="chunk", batch=b,
-            cache_len=pad_len + max_new_tokens, prompt_pad=pad_len,
-            steps=chunk, tail_len=tlen, cuda_graphs=self.cuda_graphs)
-        vision, region = self._encode_batched(enc)
-        embeds, pos, seq_lens, deltas = self._splice_stacked(
-            enc, vision, region, preps, pad_len)
-        seq_d = self._upload(seq_lens)
-        _, first_logits = prefill(
-            self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
-            pad_len + max_new_tokens, attention=self.attention,
-            cache=prog.cache)
-        gen = self._generator(seed)
-        tok0, done0 = sample_first(first_logits, gen_cfg, gen)
-        load_chunk_state(prog, tok0, torch.ones_like(tok0), done0, seq_d,
-                         self._upload(deltas),
-                         self._upload(np.asarray(row_max, np.int64)),
-                         torch.full_like(prog.tail, -1))
+        reqs = trace.request_ids(preps)
+        with trace.span("start_session", reqs=reqs):
+            b = len(preps)
+            enc = self._stack_batch_inputs(preps)
+            pad_len = pad_len or pad_to_bucket(
+                max(p["splice"].seq_len for p in preps), 128)
+            row_max = list(row_max or [max_new_tokens] * b)
+            if len(row_max) != b or max(row_max) > max_new_tokens:
+                raise ValueError(f"row_max {row_max} for {b} rows and "
+                                 f"max_new_tokens {max_new_tokens}")
+            gen_cfg = self._gen_cfg(max_new_tokens, temperature, top_p,
+                                    eos_token_id, stop_sequences)
+            tlen = max([len(s) for s in stop_sequences] or [1])
+            prog = acquire_program(
+                self.text, self.cfg.text, gen_cfg, mode="chunk", batch=b,
+                cache_len=pad_len + max_new_tokens, prompt_pad=pad_len,
+                steps=chunk, tail_len=tlen, cuda_graphs=self.cuda_graphs)
+            vision, region = self._encode_batched(enc)
+            embeds, pos, seq_lens, deltas = self._splice_stacked(
+                enc, vision, region, preps, pad_len)
+            seq_d = self._upload(seq_lens)
+            with trace.span("prefill", device=self._card):
+                _, first_logits = prefill(
+                    self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
+                    pad_len + max_new_tokens, attention=self.attention,
+                    cache=prog.cache)
+            gen = self._generator(seed)
+            tok0, done0 = sample_first(first_logits, gen_cfg, gen)
+            load_chunk_state(prog, tok0, torch.ones_like(tok0), done0, seq_d,
+                             self._upload(deltas),
+                             self._upload(np.asarray(row_max, np.int64)),
+                             torch.full_like(prog.tail, -1))
         return {
             "program": prog, "cache": prog.cache, "cur": prog.cur,
             "row_steps": prog.row_steps, "done": prog.done,
@@ -931,6 +985,7 @@ class FO1Model(nn.Module):
             "grid": enc["grid"], "batch": b, "eos": gen_cfg.eos_token_id,
             "stop_sequences": stop_sequences, "seed": seed,
             "generator": gen, "ticks": 0,
+            "reqs": [p.get("request_id") for p in preps],
         }
 
     @torch.inference_mode()
@@ -941,12 +996,15 @@ class FO1Model(nn.Module):
         prev_row_steps[b]]."""
         sess["ticks"] += 1
         prog = sess["program"]
-        prev = prog.row_steps.clone()
-        toks, *_, steps, _ = decode_chunk(
-            self.text, self.cfg.text, sess["gen_cfg"], prog.cache, prog.cur,
-            prog.row_steps, prog.done, prog.seq_lens, prog.rope_deltas,
-            prog.row_max, prog.tail, sess["generator"],
-            prompt_pad=sess["prompt_pad"], chunk=sess["chunk"], program=prog)
+        with trace.span("cont.chunk", reqs=tuple(sess["reqs"]),
+                        device=self._card):
+            prev = prog.row_steps.clone()
+            toks, *_, steps, _ = decode_chunk(
+                self.text, self.cfg.text, sess["gen_cfg"], prog.cache,
+                prog.cur, prog.row_steps, prog.done, prog.seq_lens,
+                prog.rope_deltas, prog.row_max, prog.tail, sess["generator"],
+                prompt_pad=sess["prompt_pad"], chunk=sess["chunk"],
+                program=prog)
         return toks, prev, steps
 
     @torch.inference_mode()
@@ -957,33 +1015,38 @@ class FO1Model(nn.Module):
         session). Returns tok0 [G]: each refilled row's first token."""
         if len(preps) != len(slots) or not slots:
             raise ValueError("one prep per slot, at least one")
-        enc = self._stack_batch_inputs(preps)
-        if tuple(enc["grid"]) != tuple(sess["grid"]):
-            raise ValueError("refill geometry differs from the session's")
-        gen_cfg = sess["gen_cfg"]
-        row_max = list(row_max or [gen_cfg.max_new_tokens] * len(preps))
-        if max(row_max) > gen_cfg.max_new_tokens:
-            raise ValueError(f"row_max {row_max} exceeds the session's "
-                             f"{gen_cfg.max_new_tokens}")
-        sess["ticks"] += 1
-        prog = sess["program"]
-        vision, region = self._encode_batched(enc)
-        embeds, pos, seq_lens, deltas = self._splice_stacked(
-            enc, vision, region, preps, sess["prompt_pad"])
-        slots_d = self._upload(np.asarray(slots, np.int64))
-        seq_d = self._upload(seq_lens)
-        _, logits = prefill_into_slots(
-            self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
-            prog.cache, slots_d, attention=self.attention)
-        tok0, done0 = sample_first(logits, gen_cfg, sess["generator"])
-        prog.cur.index_copy_(0, slots_d, tok0)
-        prog.row_steps.index_fill_(0, slots_d, 1)
-        prog.done.index_copy_(0, slots_d, done0)
-        prog.seq_lens.index_copy_(0, slots_d, seq_d)
-        prog.rope_deltas.index_copy_(0, slots_d, self._upload(deltas))
-        prog.row_max.index_copy_(0, slots_d, self._upload(
-            np.asarray(row_max, np.int64)))
-        prog.tail.index_fill_(0, slots_d, -1)
+        reqs = trace.request_ids(preps)
+        with trace.span("refill_session", reqs=reqs):
+            enc = self._stack_batch_inputs(preps)
+            if tuple(enc["grid"]) != tuple(sess["grid"]):
+                raise ValueError("refill geometry differs from the session's")
+            gen_cfg = sess["gen_cfg"]
+            row_max = list(row_max or [gen_cfg.max_new_tokens] * len(preps))
+            if max(row_max) > gen_cfg.max_new_tokens:
+                raise ValueError(f"row_max {row_max} exceeds the session's "
+                                 f"{gen_cfg.max_new_tokens}")
+            sess["ticks"] += 1
+            prog = sess["program"]
+            vision, region = self._encode_batched(enc)
+            embeds, pos, seq_lens, deltas = self._splice_stacked(
+                enc, vision, region, preps, sess["prompt_pad"])
+            slots_d = self._upload(np.asarray(slots, np.int64))
+            seq_d = self._upload(seq_lens)
+            with trace.span("prefill", device=self._card):
+                _, logits = prefill_into_slots(
+                    self.text, self.cfg.text, embeds, self._upload(pos), seq_d,
+                    prog.cache, slots_d, attention=self.attention)
+            tok0, done0 = sample_first(logits, gen_cfg, sess["generator"])
+            prog.cur.index_copy_(0, slots_d, tok0)
+            prog.row_steps.index_fill_(0, slots_d, 1)
+            prog.done.index_copy_(0, slots_d, done0)
+            prog.seq_lens.index_copy_(0, slots_d, seq_d)
+            prog.rope_deltas.index_copy_(0, slots_d, self._upload(deltas))
+            prog.row_max.index_copy_(0, slots_d, self._upload(
+                np.asarray(row_max, np.int64)))
+            prog.tail.index_fill_(0, slots_d, -1)
+            for slot, p in zip(slots, preps):
+                sess["reqs"][slot] = p.get("request_id")
         return tok0
 
     def close_session(self, sess: dict):

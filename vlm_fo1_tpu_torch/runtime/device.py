@@ -3,9 +3,10 @@
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
+
+from vlm_fo1_tpu_torch.runtime import trace
 
 
 def resolve_device(device) -> torch.device:
@@ -20,10 +21,13 @@ def resolve_device(device) -> torch.device:
 @contextlib.contextmanager
 def stage_timer(out: dict | None, name: str, device: torch.device):
     """Record the wall-clock ms of the block, ended by a device
-    synchronise, as out[name]; a no-op when out is None."""
-    t0 = time.perf_counter()
-    yield
-    if out is not None:
+    synchronise, as out[name] (a `stage.<name>` span); a no-op when out is
+    None."""
+    if out is None:
+        yield
+        return
+    with trace.span(f"stage.{name}") as s:
+        yield
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        out[name] = (time.perf_counter() - t0) * 1e3
+    out[name] = s.host_ms

@@ -50,6 +50,7 @@ from vlm_fo1_tpu_torch.models.llm import (
     mrope_cos_sin,
 )
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
+from vlm_fo1_tpu_torch.runtime import trace
 from vlm_fo1_tpu_torch.runtime.graphs import CapturedSteps, ProgramCache
 
 # steps captured in one graph of the batch-synchronous loop: the host reads
@@ -377,8 +378,9 @@ def acquire_program(text: TextModel, cfg: TextConfig, gen_cfg, *, mode,
                     batch, cache_len, prompt_pad, steps, tail_len=1,
                     dtype=None, device=None, cuda_graphs=True):
     """A free `DecodeProgram` of this shape from the text model's program
-    cache, or a new one (captured now on the card). Return it with
-    `release_program` once its results are read."""
+    cache, or a new one (captured now on the card; each counts in
+    `trace.counters()["program_builds"]`). Return it with `release_program`
+    once its results are read."""
     dtype = dtype or text.norm.weight.dtype
     device = torch.device(device or text.norm.weight.device)
     use_graph = bool(cuda_graphs) and device.type == "cuda"
@@ -386,6 +388,7 @@ def acquire_program(text: TextModel, cfg: TextConfig, gen_cfg, *, mode,
            dtype, device, use_graph)
 
     def build():
+        trace.count("program_builds")
         return DecodeProgram(text, cfg, gen_cfg, mode=mode, batch=batch,
                              cache_len=cache_len, prompt_pad=prompt_pad,
                              steps=steps, tail_len=tail_len, dtype=dtype,

@@ -20,6 +20,10 @@ launches nothing, would count launches that never happen. So the capture
 records what the wrappers counted while it ran, puts every counter back as
 it was, and every replay adds the recorded counts again: the counters read
 the eager warm-up and the replays, the kernels that really ran.
+
+Each capture counts in `trace.counters()["captures"]` and is a
+`graph.capture` span (its warm-up, synchronise, collection and capture):
+a count that rises after a server's warm-up means a shape it missed.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
 from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul
 from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp
+from vlm_fo1_tpu_torch.runtime import trace
 
 _COUNTED = (flash_attention, int4_matmul, int4_mlp)
 
@@ -63,7 +68,9 @@ class CapturedSteps:
         self.pool_bytes = 0
         self._launches = None
         if device.type == "cuda" and use_graph:
-            self._capture(device)
+            trace.count("captures")
+            with trace.span("graph.capture"):
+                self._capture(device)
 
     def _capture(self, device):
         side = torch.cuda.Stream(device)
@@ -84,7 +91,7 @@ class CapturedSteps:
         graph = torch.cuda.CUDAGraph()
         before = _counts()
         try:
-            with torch.cuda.graph(graph):
+            with trace.capture(), torch.cuda.graph(graph):
                 self.fn()
             self._launches = _count_delta(before, _counts())
         finally:

@@ -1,8 +1,6 @@
 """Profiling and debug helpers (counterpart of
 `vlm_fo1_tpu/runtime/profiler.py`):
 
-- `timed(name)`: the wall time of a block, ended by a device synchronise;
-- `StageTimer`: named stage times accumulated over calls;
 - `trace(path)`: a `torch.profiler` trace of a block, written as a Chrome
   trace (open it in chrome://tracing or Perfetto);
 - `enable_debug(model)` / `disable_debug(model)`: raise at the first module
@@ -14,54 +12,8 @@
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
 
 import torch
-
-
-def _sync(device):
-    device = torch.device(device) if device is not None else None
-    if device is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-@contextlib.contextmanager
-def timed(name: str, results: dict | None = None, device=None):
-    """Seconds of the block, ended by a synchronise of `device` (a CUDA
-    device; None or the CPU waits for nothing), added to results[name], or
-    printed in ms when results is None."""
-    t0 = time.perf_counter()
-    yield
-    _sync(device)
-    dt = time.perf_counter() - t0
-    if results is not None:
-        results[name] = results.get(name, 0.0) + dt
-    else:
-        print(f"[timed] {name}: {dt * 1e3:.1f} ms")
-
-
-class StageTimer:
-    """Per-stage wall times, each stage ended by a synchronise of the
-    timer's device."""
-
-    def __init__(self, device=None):
-        self.device = device
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        _sync(self.device)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> dict[str, float]:
-        """Mean seconds per call of each stage."""
-        return {k: round(v / max(self.counts[k], 1), 4)
-                for k, v in self.totals.items()}
 
 
 @contextlib.contextmanager

@@ -28,6 +28,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from vlm_fo1_tpu_torch.runtime import trace
+
 
 @dataclass
 class ServingOptions:
@@ -68,6 +70,17 @@ class _Launched:
 def _transient(err: Exception) -> bool:
     """The failure a retry can cure: the card ran out of memory."""
     return isinstance(err, torch.cuda.OutOfMemoryError)
+
+
+def _prepared(futs) -> list:
+    """The prepare futures' results; where one is not done yet, the wait
+    is a `serve.wait` span (the device loop stalled on host prepare)."""
+    if all(f.done() for f in futs):
+        return [f.result() for f in futs]
+    with trace.span("serve.wait") as s:
+        preps = [f.result() for f in futs]
+        s.reqs = trace.request_ids(preps)
+    return preps
 
 
 class ServingPipeline:
@@ -179,7 +192,7 @@ class ServingPipeline:
             while pending or in_flight:
                 while pending and len(in_flight) <= opts.max_in_flight:
                     idxs, futs = pending.popleft()
-                    preps = [f.result() for f in futs]
+                    preps = _prepared(futs)
                     self._record_launch(preps)
                     handle = self._launch_with_retry(preps)
                     in_flight.append(_Launched(handle, idxs, preps))
@@ -222,7 +235,7 @@ class ServingPipeline:
                 moved = False
                 while futs and (futs[0][1].done() or (block and not moved)):
                     i, f = futs.popleft()
-                    prep = f.result()
+                    prep = _prepared([f])[0]
                     key = tuple(int(g) for g in prep["grid"])
                     buckets.setdefault(key, []).append((i, prep))
                     moved = True
@@ -442,13 +455,16 @@ class ContinuousServingPipeline:
                 temperature=opts.temperature, top_p=opts.top_p,
                 seed=opts.seed, eos_token_id=opts.eos_token_id,
                 chunk=opts.chunk)
+            card = model.device.type == "cuda"
+            turn = None   # the host's turn between two chunks
             try:
                 slot_req = list(idxs)          # slot -> request (or -1)
-                tok0_h = sess["tok0"].cpu().numpy()
+                with trace.span("cont.readback"):
+                    tok0_h = sess["tok0"].cpu().numpy()
+                    # rows whose very first token finished them
+                    done_h = sess["done"].cpu().numpy().copy()
                 for s, i in enumerate(slot_req):
                     tokens_acc[i] = [int(tok0_h[s])]
-                # rows whose very first token finished them
-                done_h = sess["done"].cpu().numpy().copy()
 
                 def finalize(slot):
                     i = slot_req[slot]
@@ -474,14 +490,23 @@ class ContinuousServingPipeline:
                     if not live:
                         break
                     if not done_h.all():
+                        if turn is not None:
+                            turn.close()
+                            turn = None
                         toks_d, prev_d, steps_d = model.decode_session_chunk(
                             sess)
                         self.stats["chunks"] += 1
-                        toks = toks_d.cpu().numpy()
-                        prev = prev_d.cpu().numpy()
-                        new = sess["row_steps"].cpu().numpy()
-                        done_h = sess["done"].cpu().numpy().copy()
-                        self.stats["device_steps"] += int(steps_d)
+                        with trace.span("cont.readback",
+                                        reqs=tuple(sess["reqs"])):
+                            toks = toks_d.cpu().numpy()
+                            prev = prev_d.cpu().numpy()
+                            new = sess["row_steps"].cpu().numpy()
+                            done_h = sess["done"].cpu().numpy().copy()
+                            steps = int(steps_d)
+                        self.stats["device_steps"] += steps
+                        # kept only if another chunk follows
+                        turn = trace.open_span("cont.turn",
+                                               reqs=tuple(sess["reqs"]))
                         for s in live:
                             cnt = int(new[s] - prev[s])
                             if cnt > 0:
@@ -502,11 +527,15 @@ class ContinuousServingPipeline:
                             self.stats["dummy_rows"] += refill - g
                         row_max = [maxes[i] for i in idxs] + [1] * (refill
                                                                    - g)
-                        tok0 = model.refill_session(sess, preps, slots,
-                                                    row_max=row_max)
+                        with trace.span("cont.refill",
+                                        reqs=trace.request_ids(preps),
+                                        device=card):
+                            tok0 = model.refill_session(sess, preps, slots,
+                                                        row_max=row_max)
                         self.stats["refills"] += 1
-                        tok0_h = tok0.cpu().numpy()
-                        done_h = sess["done"].cpu().numpy().copy()
+                        with trace.span("cont.readback"):
+                            tok0_h = tok0.cpu().numpy()
+                            done_h = sess["done"].cpu().numpy().copy()
                         for j, s in enumerate(slots):
                             if j < g:
                                 slot_req[s] = idxs[j]
@@ -518,5 +547,7 @@ class ContinuousServingPipeline:
                         if slot_req[s] >= 0 and done_h[s]:
                             finalize(s)
             finally:
+                if turn is not None:
+                    turn.close(keep=False)
                 model.close_session(sess)
         return results
