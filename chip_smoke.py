@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result line):
   0. environment: torch / CUDA versions, the card, Pillow;
-  1. build the nine CUDA kernels from the checkout's sources, one nvcc
+  1. build the ten CUDA kernels from the checkout's sources, one nvcc
      each, started together, and the native host helper
      (native/preproc.cpp -> build/libfo1_preproc.so, g++);
   2. flash attention vs its plain PyTorch version on the card: every mask
@@ -235,7 +235,16 @@ Phases (any failure exits non-zero and prints no result line):
      dense, all staged (prefill logits to 2e-2 relative L2; at world 1
      every run's tokens equal the dense ones; each run's token agreement
      and the flash launches printed); the world size is printed, and at
-     world 1 the groups are of size 1.
+     world 1 the groups are of size 1;
+ 33. (after phase 23) the decode step's attention kernel against its plain
+     version (the chain it replaced) at (B, C) = (1, 1952), (8, 1952) and
+     (8, 2432), H 16, Hkv 2, hd 128, bf16, each row valid below a length
+     drawn from [C - 200, C]: worst head row within 1e-2 relative L2,
+     bit-equal on repeat, kernel and plain as CUDA graph replays over
+     copies larger than the L2 cache beside the byte bound (K and V of the
+     valid slots, q, the mask and the output once) and the kernel's eager
+     per-call time; then a captured B = 8 chunk program of the phase-6 3B
+     model (C 2432, prompt bucket 1920, 8 steps) adds 36 launches a step.
 Findings go to stdout, each line tagged with the card's name and power
 limit; the line before the last is the kernels' JSON summary and the last
 line is the result JSON.
@@ -2649,6 +2658,93 @@ def phase_serving_3b(sm, fo1, upn, fa, msda, gen, serving, OD_template):
     return out, windows, flash_b8
 
 
+DA_SHAPES = ((1, 1952), (8, 1952), (8, 2432))   # (B, C); H 16, Hkv 2
+DA_ROW_REL = 1e-2
+
+
+def _da_inputs(g, b, c):
+    """Decode attention's inputs at the 3B widths: q [B, 16, 128], kc / vc
+    [B, C, 2, 128] bf16, each row valid below a length in [C - 200, C]."""
+    def draw(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    lens = torch.randint(c - 200, c + 1, (b,), generator=g, device="cuda")
+    mask = torch.arange(c, device="cuda")[None] < lens[:, None]
+    return draw(b, 16, 128) * 3, draw(b, c, 2, 128), draw(b, c, 2, 128), mask
+
+
+def _da_times(sm, da):
+    """Phase 33's kernel half: each DA_SHAPES case checked and timed."""
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(33)
+    for b, c in DA_SHAPES:
+        name = f"B={b} C={c}"
+        args = _da_inputs(g, b, c)
+        got = da.decode_attention(*args)
+        again = da.decode_attention(*args)
+        ref = da.decode_attention_reference(*args)
+        torch.cuda.synchronize()
+        o = got.float().reshape(b, 16, 128)
+        r = ref.float().reshape(o.shape)
+        rel = float(((o - r).norm(dim=-1) / r.norm(dim=-1)).max())
+        sm.check(rel <= DA_ROW_REL and torch.equal(got, again),
+                 f"decode attention {name}: worst head row {rel:.2e} "
+                 f"relative L2 of the plain version (<= {DA_ROW_REL}), "
+                 f"bit-equal on repeat {torch.equal(got, again)}")
+        valid = int(args[3].sum())
+        nbytes = (2 * valid * 2 * 128 * 2 + 2 * b * 16 * 128 * 2
+                  + args[3].numel())
+        copies = _copies(2 * b * c * 2 * 128 * 2,
+                         lambda: _da_inputs(g, b, c))
+        ms = _graph_ms(da.decode_attention, copies)
+        plain_ms = _graph_ms(da.decode_attention_reference, copies)
+        eager_ms = _timeit_rotating(da.decode_attention, copies, n=50)
+        bound_ms, bound_by = _bound(nbytes, 4 * 16 * valid * 128, 989e12)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / ms, "row_rel": rel,
+                     "gb_per_s": nbytes / ms / 1e6}
+        sm.log(f"decode attention {name}: graph {ms * 1e3:.2f} us, eager "
+               f"{eager_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
+               f"bound {bound_ms * 1e3:.2f} us ({bound_by}, "
+               f"{nbytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f}% of it")
+        del copies, args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_decode_attention(sm, da, gen, fo1):
+    out = _da_times(sm, da)
+    tcfg = fo1.cfg.text
+    gcfg = fo1._gen_cfg(512, 0.0, 1.0, None)
+    steps = 8
+    prog = gen.acquire_program(fo1.text, tcfg, gcfg, mode="chunk", batch=8,
+                               cache_len=1920 + 512, prompt_pad=1920,
+                               steps=steps)
+    with torch.inference_mode():
+        prog.done.zero_()
+        prog.row_max.fill_(512)
+        prog.seq_lens.fill_(1800)
+        before = da.decode_attention.launches
+        prog.run()
+        torch.cuda.synchronize()
+        per_step = (da.decode_attention.launches - before) / steps
+    gen.release_program(fo1.text, prog)
+    layers = tcfg.num_hidden_layers
+    sm.check(per_step == layers and prog.captured.graph is not None,
+             f"decode attention: a captured B = 8 chunk program of the 3B "
+             f"model (C 2432, {steps} steps) launched it {per_step:g} times "
+             f"a step (one a layer: {layers})")
+    out["launches_per_captured_step"] = per_step
+    big = out["B=8 C=2432"]
+    return {"launches": da.decode_attention.launches,
+            "shape": "B=8 C=2432 H=16 Hkv=2 hd=128 bf16",
+            **{k: big[k] for k in ("ms", "plain_ms", "eager_ms", "bound_ms",
+                                   "bound_by", "bound_share", "row_rel")},
+            "library_ms": None, "shapes": out}
+
+
 def phase_int4_graph(sm, quant, i4, i4mlp):
     """The int4 kernels' streaming route at M = 1, 2, 4, 8 (decode steps'
     rows) on the 3B trunk's shapes, captured in a CUDA graph and replayed:
@@ -3551,6 +3647,7 @@ def main():
     from vlm_fo1_tpu_torch import quant
     from vlm_fo1_tpu_torch.models.fo1 import FO1Model
     from vlm_fo1_tpu_torch.ops import cuda_lib, msda
+    from vlm_fo1_tpu_torch.ops import decode_attention as da
     from vlm_fo1_tpu_torch.ops import flash_attention as fa
     from vlm_fo1_tpu_torch.ops import int4_matmul as i4
     from vlm_fo1_tpu_torch.ops import int4_mlp as i4mlp
@@ -3582,9 +3679,10 @@ def main():
     import PIL
     sm.log(f"Pillow {PIL.__version__} imports")
 
-    # phase 1: build the nine kernels, one nvcc each, started together
+    # phase 1: build the ten kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    build_s = cuda_lib.build(["flash_attention", "msda", "msda_bwd",
+    build_s = cuda_lib.build(["flash_attention", "decode_attention", "msda",
+                              "msda_bwd",
                               "int4_matmul", "int4_mlp", "int4_unpack_bench",
                               "msda_dma_bench", "msda_micro_bench",
                               "matmul_floor_bench"])
@@ -3625,6 +3723,10 @@ def main():
     serve, serve_launches, flash_b8 = phase_serving_3b(
         sm, fo1, upn, fa, msda, gen, serving, OD_template)
     sm.log("3B bf16 serving: " + json.dumps(serve))
+    # phase 33: the decode step's attention kernel, and its launches in a
+    # captured chunk program of the 3B model
+    decode_att = phase_decode_attention(sm, da, gen, fo1)
+    sm.log("decode attention: " + json.dumps(decode_att))
     # phase 26: multi-image and video prompts, a mixed batch, TFLOP/s
     multimodal = phase_multimodal_3b(sm, fo1, fa, OD_template, flops)
     sm.log("3B multimodal: " + json.dumps(multimodal))
@@ -3722,6 +3824,10 @@ def main():
             "world": dryrun.get("world"),
             "grounding_3b": dryrun.get("grounding_3b", {}).get(
                 "flash_launches")},
+    }, {
+        "name": "decode_attention", "route": "cuda",
+        "source": "vlm_fo1_tpu_torch/csrc/decode_attention.cu",
+        "replaces": None, **decode_att,
     }, {
         "name": "ms_deform_attn_core", "route": "cuda",
         "source": "vlm_fo1_tpu_torch/csrc/msda.cu",

@@ -12,8 +12,9 @@ and the decode mask keeps their keys out of every later step. A
 single-token call is a decode step with static shapes, as the JAX
 `_attention` decode path: its k/v are written at a device index (one slot
 for all rows, or one per row) and it attends over the whole cache under an
-explicit mask [B, 1, 1, C], so no step depends on a host value and a run of
-steps can be captured as a CUDA graph (`runtime/graphs.py`). A call with no
+explicit mask [B, C] through `ops.decode_attention` (the CUDA kernel
+on the card), so no step depends on a host value and a run of steps can be
+captured as a CUDA graph (`runtime/graphs.py`). A call with no
 cache is the training forward: the whole sequence through `attention`
 (`causal_attention` there).
 
@@ -41,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from vlm_fo1_tpu_torch.config import TextConfig
 from vlm_fo1_tpu_torch import nn as tnn
+from vlm_fo1_tpu_torch.ops.decode_attention import decode_attention
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
 from vlm_fo1_tpu_torch.ops.int4_mlp import KEYS, int4_mlp
 
@@ -123,7 +125,7 @@ class Attention(nn.Module):
         for a cache-free call. A multi-token call writes slots
         [offset, offset + S) with offset 0. A single-token call writes at
         `offset`, a device tensor holding one slot ([]) or one slot per row
-        ([B]), and attends over all C slots where `mask` [B, 1, 1, C] is
+        ([B]), and attends over all C slots where `mask` [B, C] is
         True."""
         b, s, _ = x.shape
         nh, nkv, hd = self.nh, self.nkv, self.hd
@@ -147,12 +149,7 @@ class Attention(nn.Module):
         rows = torch.arange(b, device=x.device) * c + offset
         kc.view(b * c, nkv, hd).index_copy_(0, rows, k[:, 0].to(kc.dtype))
         vc.view(b * c, nkv, hd).index_copy_(0, rows, v[:, 0].to(vc.dtype))
-        qg = q.reshape(b, nkv, nh // nkv, hd)
-        logits = torch.einsum("bngh,bcnh->bngc", qg.float(), kc.float())
-        logits = logits * (1.0 / math.sqrt(hd))
-        logits = logits.masked_fill(~mask[:, :, :1], tnn.MASK_FILL)
-        probs = torch.softmax(logits.to(x.dtype).float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bngc,bcnh->bngh", probs, vc.to(x.dtype))
+        out = decode_attention(q[:, 0], kc, vc, mask)
         return self.o_proj(out.reshape(b, 1, nh * hd))
 
 
@@ -234,7 +231,7 @@ class TextModel(nn.Module):
         """hidden [B, S, D] -> final-normed hidden [B, S, D]. A prefill
         (S > 1, offset 0) fills kv_cache slots [0, S) of every layer; a
         decode step (S = 1) writes slot `offset` (a device tensor, [] or
-        [B]) and attends under `mask` [B, 1, 1, C] (see `Attention`). With
+        [B]) and attends under `mask` [B, C] (see `Attention`). With
         no cache (the JAX `text_forward` with kv_cache=None) the whole
         sequence goes through `attention` under the causal mask: training
         passes the differentiable `causal_attention`, and remat=True

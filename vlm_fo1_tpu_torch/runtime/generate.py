@@ -186,7 +186,7 @@ def _step_logits(text, cfg, cache, cur, rope_pos, write_at, mask):
     b = cur.shape[0]
     cos, sin = mrope_cos_sin(rope_pos.view(1, b, 1).expand(3, b, 1), cfg)
     hidden = text(text.embed(cur[:, None]), cos, sin, cache, write_at,
-                  mask=mask[:, None, None])
+                  mask=mask)
     return text.logits(hidden)[:, 0]
 
 

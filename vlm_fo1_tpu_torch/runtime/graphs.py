@@ -14,7 +14,8 @@ failed capture raises.
 
 A graph replay launches kernels without running their Python wrappers, so
 the wrappers' launch counters (`flash_attention.launches`,
-`int4_matmul.launches` and `.routes`, `int4_mlp.launches` and `.routes`)
+`decode_attention.launches`, `int4_matmul.launches` and `.routes`,
+`int4_mlp.launches` and `.routes`)
 would miss them, and the capture itself, which runs the wrappers but
 launches nothing, would count launches that never happen. So the capture
 records what the wrappers counted while it ran, puts every counter back as
@@ -33,12 +34,13 @@ from collections import OrderedDict
 
 import torch
 
+from vlm_fo1_tpu_torch.ops.decode_attention import decode_attention
 from vlm_fo1_tpu_torch.ops.flash_attention import flash_attention
 from vlm_fo1_tpu_torch.ops.int4_matmul import int4_matmul
 from vlm_fo1_tpu_torch.ops.int4_mlp import int4_mlp
 from vlm_fo1_tpu_torch.runtime import trace
 
-_COUNTED = (flash_attention, int4_matmul, int4_mlp)
+_COUNTED = (flash_attention, decode_attention, int4_matmul, int4_mlp)
 
 
 def _counts():
